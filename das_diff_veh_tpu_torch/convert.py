@@ -1,0 +1,64 @@
+"""Carry a configuration and a record across from the JAX package.
+
+The system has no weights: the configuration and the data take their place.
+``config_from_dict`` takes ``dataclasses.asdict`` of a JAX
+``PipelineConfig`` as a plain dict (so this module never imports the JAX
+package) and returns the port's :class:`PipelineConfig`.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from das_diff_veh_tpu_torch import config as C
+from das_diff_veh_tpu_torch.core.section import DasSection
+from das_diff_veh_tpu_torch.device import resolve_device
+
+_SUB = {
+    "interrogator": C.InterrogatorConfig,
+    "track_qc": C.TrackQCConfig,
+    "tracking_preprocess": C.TrackingPreprocessConfig,
+    "sw_preprocess": C.SurfaceWavePreprocessConfig,
+    "window": C.WindowConfig,
+    "mute": C.MuteConfig,
+    "gather": C.GatherConfig,
+    "dispersion": C.DispersionConfig,
+    "imaging": C.ImagingConfig,
+}
+
+
+def config_from_dict(d: dict) -> C.PipelineConfig:
+    """The port's configuration from ``dataclasses.asdict(jax_config)``.
+
+    Copies the main-path sub-configurations field for field (a field the port
+    lacks is a ``TypeError``, so drift shows).  Of the rest it reads only
+    ``chunk_pipeline`` and ``health.enabled`` and raises
+    ``NotImplementedError`` where they ask for what the port lacks; it ignores
+    ``bootstrap`` and ``fleet``, which the per-chunk path never reads."""
+    chunk_pipeline = d.get("chunk_pipeline", "staged")
+    if chunk_pipeline != "staged":
+        raise NotImplementedError(f"chunk_pipeline={chunk_pipeline!r} is not ported yet")
+    health = dict(d.get("health", {}))
+    if health.get("enabled", False):
+        raise NotImplementedError("the input-health sentinel (health.enabled) is not "
+                                  "ported yet")
+    kw = {name: cls(**d[name]) for name, cls in _SUB.items() if name in d}
+    if "tracking" in d:
+        tr = dict(d["tracking"])
+        tr["detect"] = C.DetectConfig(**tr["detect"])
+        kw["tracking"] = C.TrackingConfig(**tr)
+    if health:
+        kw["health"] = C.HealthConfig(**health)
+    if "max_windows" in d:
+        kw["max_windows"] = int(d["max_windows"])
+    return C.PipelineConfig(chunk_pipeline=chunk_pipeline, **kw)
+
+
+def section_from_numpy(data: np.ndarray, x: np.ndarray, t: np.ndarray,
+                       device=None) -> DasSection:
+    """A :class:`DasSection` of ``data`` on ``device`` (``None`` = the card)
+    in ``data``'s own dtype, with the axes as host float64 tensors."""
+    return DasSection(torch.as_tensor(np.asarray(data), device=resolve_device(device)),
+                      torch.as_tensor(np.asarray(x, dtype=np.float64)),
+                      torch.as_tensor(np.asarray(t, dtype=np.float64)))

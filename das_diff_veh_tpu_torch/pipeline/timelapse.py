@@ -1,0 +1,120 @@
+"""Per-chunk processing: one DAS time window -> tracked vehicles -> selected
+surface-wave windows -> stacked virtual shot gather -> dispersion image.
+
+Mirrors the staged path of ``das_diff_veh_tpu/pipeline/timelapse.py`` for
+``method="xcorr"``.  ``process_chunk`` runs on the card unless the caller
+passes ``device="cpu"``; it turns TF32 off first (``device.resolve_device``).
+The computation follows the section's dtype: float32 on the card, float64 in
+the CPU parity tests.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from das_diff_veh_tpu_torch.config import PipelineConfig
+from das_diff_veh_tpu_torch.core.section import (DasSection, VehicleTracks,
+                                                 WindowBatch)
+from das_diff_veh_tpu_torch.device import resolve_device
+from das_diff_veh_tpu_torch.models import vsg as V
+from das_diff_veh_tpu_torch.models.tracking import track_grid, track_section
+from das_diff_veh_tpu_torch.models.windows import select_windows, window_x_slice
+from das_diff_veh_tpu_torch.pipeline.preprocess import (channels_to_distance,
+                                                        preprocess_for_surface_waves,
+                                                        preprocess_for_tracking)
+
+
+@dataclass
+class ChunkResult:
+    """One processed chunk: stacked image + provenance."""
+
+    disp_image: torch.Tensor          # (nvel, nfreq)
+    vsg_stack: Optional[torch.Tensor]  # (nch_out, wlen)
+    n_windows: int                    # accepted (isolated) vehicle windows
+    tracks: VehicleTracks
+    batch: WindowBatch                # surface-wave-band windows
+    qs_batch: Optional[WindowBatch]   # raw-band windows (with_qs=True only)
+
+
+def resolve_chunk_metadata(section: DasSection, cfg: PipelineConfig,
+                           x_is_channels: bool = False):
+    """``(x_dist, t, dt)`` as host numpy from the section's axis metadata."""
+    x = np.asarray(section.x.cpu())
+    x_dist = channels_to_distance(x, cfg.interrogator) if x_is_channels else x
+    t = np.asarray(section.t.cpu())
+    return x_dist, t, float(t[1] - t[0])
+
+
+def chunk_body(data: torch.Tensor, x_dist: np.ndarray, t: np.ndarray,
+               dt: float, cfg: PipelineConfig, method: str = "xcorr",
+               with_qs: bool = False):
+    """Preprocess both bands -> track -> select windows -> stacked gather and
+    its dispersion image.  ``x_dist``/``t`` are host numpy; every slice bound
+    resolves from them.  Returns ``(img, vsg_stack, n_windows, tracks, batch,
+    qs_batch)`` with ``n_windows`` a device scalar."""
+    if method != "xcorr":
+        raise NotImplementedError(f"method={method!r} is not ported yet; use 'xcorr'")
+    d_sw = preprocess_for_surface_waves(data, dt, cfg.sw_preprocess, normalize=False)
+    d_track, x_track, t_stride = preprocess_for_tracking(
+        data, x_dist, dt, cfg.tracking_preprocess, dx=cfg.interrogator.dx)
+    t_track = t[::t_stride]
+
+    # amplitude negated: deflection pulses become positive peaks
+    tracks = track_section(-d_track, x_track, t_track,
+                           cfg.imaging.start_x, cfg.imaging.end_x,
+                           cfg.tracking, cfg.track_qc)
+    tgrid = track_grid(x_track, cfg.imaging.start_x, cfg.imaging.end_x)
+
+    batch = select_windows(d_sw, x_dist, t, tracks, cfg.imaging.x0,
+                           cfg.window, track_x=tgrid, track_t=t_track)
+    qs_batch = (select_windows(data, x_dist, t, tracks, cfg.imaging.x0,
+                               cfg.window, track_x=tgrid, track_t=t_track)
+                if with_qs else None)
+
+    n_windows = batch.valid.sum()
+    x_win = window_x_slice(x_dist, cfg.imaging.x0, cfg.window)
+    g = V.VsgGeometry.build(x_win, dt, cfg.imaging.x0,
+                            cfg.imaging.x0 + cfg.imaging.disp_start_x,
+                            cfg.imaging.x0 + cfg.gather.far_offset, cfg.gather)
+    stack = V.stack_gathers(V.build_gather_batch(batch, g, cfg.gather), batch.valid)
+    img = V.gather_disp_image(stack, g.offsets(x_win), dt, cfg.interrogator.dx,
+                              cfg.dispersion, cfg.imaging.disp_start_x,
+                              cfg.imaging.disp_end_x)
+    return img, stack, n_windows, tracks, batch, qs_batch
+
+
+def process_chunk(section: DasSection, cfg: Optional[PipelineConfig] = None,
+                  method: str = "xcorr", x_is_channels: bool = False,
+                  with_qs: bool = False, device=None) -> ChunkResult:
+    """Full per-chunk pipeline on ``device`` (``None`` = the card; raises
+    without one): preprocess both bands, track, select windows around
+    ``cfg.imaging.x0``, build the stacked virtual shot gather and its
+    dispersion image.  ``section.data`` is moved to ``device`` and keeps its
+    dtype.
+
+    Not ported yet, and raising ``NotImplementedError``: ``method=
+    "surface_wave"``, ``cfg.chunk_pipeline="fused"`` and
+    ``cfg.health.enabled``."""
+    if method not in {"xcorr", "surface_wave"}:
+        raise ValueError(f"method must be 'xcorr' or 'surface_wave', got {method!r}")
+    if method == "surface_wave":
+        raise NotImplementedError("method='surface_wave' is not ported yet")
+    cfg = cfg if cfg is not None else PipelineConfig()
+    if cfg.chunk_pipeline != "staged":
+        raise NotImplementedError(f"chunk_pipeline={cfg.chunk_pipeline!r} is not "
+                                  f"ported yet; use 'staged'")
+    if cfg.health.enabled:
+        raise NotImplementedError("the input-health sentinel (health.enabled) is "
+                                  "not ported yet")
+    dev = resolve_device(device)
+    x_dist, t, dt = resolve_chunk_metadata(section, cfg, x_is_channels)
+    data = section.data.to(dev)
+    img, vsg_stack, n_windows, tracks, batch, qs_batch = chunk_body(
+        data, x_dist, t, dt, cfg, method=method, with_qs=with_qs)
+    return ChunkResult(disp_image=img, vsg_stack=vsg_stack,
+                       n_windows=int(n_windows), tracks=tracks,
+                       batch=batch, qs_batch=qs_batch)

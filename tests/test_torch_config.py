@@ -1,0 +1,50 @@
+"""The port's configuration mirrors the JAX package's field for field, and
+``convert.config_from_dict`` carries a JAX configuration across."""
+
+import dataclasses
+
+import pytest
+
+from das_diff_veh_tpu import config as J
+from das_diff_veh_tpu_torch import config as P
+from das_diff_veh_tpu_torch.convert import config_from_dict
+
+MIRRORED = ["InterrogatorConfig", "DetectConfig", "TrackingConfig", "TrackQCConfig",
+            "TrackingPreprocessConfig", "SurfaceWavePreprocessConfig", "WindowConfig",
+            "MuteConfig", "GatherConfig", "DispersionConfig", "ImagingConfig",
+            "HealthConfig"]
+# sub-configurations the per-chunk path never reads
+NOT_PORTED = {"bootstrap", "fleet"}
+
+
+@pytest.mark.parametrize("name", MIRRORED)
+def test_defaults_match_field_for_field(name):
+    assert dataclasses.asdict(getattr(P, name)()) == dataclasses.asdict(getattr(J, name)())
+
+
+def test_pipeline_config_matches_without_unported_parts():
+    jd = {k: v for k, v in dataclasses.asdict(J.PipelineConfig()).items()
+          if k not in NOT_PORTED}
+    assert dataclasses.asdict(P.PipelineConfig()) == jd
+    assert P.DispersionConfig().n_freqs == J.DispersionConfig().n_freqs
+    assert P.DispersionConfig().n_vels == J.DispersionConfig().n_vels
+
+
+def test_config_from_dict_round_trip():
+    jcfg = J.PipelineConfig().replace(
+        imaging=J.ImagingConfig(x0=400.0),
+        tracking=J.TrackingConfig(max_vehicles=8, detect=J.DetectConfig(max_peaks=32)),
+        gather=J.GatherConfig(traj_gather="serialized"), max_windows=16)
+    pcfg = config_from_dict(dataclasses.asdict(jcfg))
+    jd = {k: v for k, v in dataclasses.asdict(jcfg).items() if k not in NOT_PORTED}
+    assert dataclasses.asdict(pcfg) == jd
+    assert pcfg.tracking.detect.max_peaks == 32 and pcfg.imaging.x0 == 400.0
+
+
+def test_config_from_dict_refuses_unported_modes():
+    d = dataclasses.asdict(J.PipelineConfig().replace(chunk_pipeline="fused"))
+    with pytest.raises(NotImplementedError, match="chunk_pipeline"):
+        config_from_dict(d)
+    d = dataclasses.asdict(J.PipelineConfig().replace(health=J.HealthConfig(enabled=True)))
+    with pytest.raises(NotImplementedError, match="health"):
+        config_from_dict(d)
