@@ -18,7 +18,17 @@ Phases, each of which must pass:
    held against the port's own CPU float64 run of the same scene;
 5. times: the chunk's wall time and the kernel's time, its plain version's
    time and its bound, on the inputs the main path gave it;
-6. with ``--profile``: device time by kernel over one warm chunk.
+6. with ``--profile``: device time by kernel over one warm chunk (and, in
+   phase 8, over one warm all-pairs call);
+7. all-pairs kernels vs plain: the cross-spectra kernel (B3) and the lag-axis
+   peak kernel (B4) against their plain versions on the card at edge shapes;
+8. all-pairs path: ``xcorr_all_pairs_peak`` at BASELINE config 4 (10000
+   channels x 4096 samples at 1 kHz, wlen 1024, float32) on the card, with
+   its launch counts, held against the card's plain path and a float64
+   NumPy computation; then ``xcorr_all_pairs`` in the lag domain at 4096 x
+   4096 channels with 129 lags, held against its plain path;
+9. all-pairs times: B3 and B4 on the inputs the path gave them, beside their
+   bounds, their plain versions and one PyTorch call computing the same.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -34,6 +44,7 @@ import subprocess
 import sys
 import time
 import traceback
+from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -41,6 +52,7 @@ import torch
 
 REPO = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate (data sheet)
+FP32_OPS_PER_S = 67e12             # H100 SXM float32 outside the tensor cores (data sheet)
 
 # The float32 card run against the float64 CPU run of the same chunk: the
 # record's FFT band-passes (48750-point transforms of the padded 2-minute
@@ -52,6 +64,24 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate (data sheet)
 IMAGE_PEAK_REL_TOL = 1e-3
 SCENE = dict(nch=140, duration=120.0, n_vehicles=6, seed=2, speed_range=(12.0, 18.0))
 WARM_RUNS = 5
+
+# BASELINE config 4: 10000 channels at 1 kHz, a 4096-sample record, 1024-sample
+# windows at 50 % overlap (7 windows, 513 frequencies); the entry's defaults
+# (src_chunk=64, lagmax_block=512) give ceil(10000/64) = 157 launches of B3
+# and 157 * ceil(10000/512) = 3140 of B4.
+ALLPAIRS = dict(nch=10000, nt=4096, seed=3, wlen=1024)
+ALLPAIRS_LAUNCHES = {"traj_gather": 0, "cross_spectra": 157, "lag_absmax": 3140}
+LAG_DOMAIN = dict(nch=4096, nt=4096, seed=3, wlen=1024, lag_keep=64)
+LAG_DOMAIN_LAUNCHES = {"traj_gather": 0, "cross_spectra": 32, "lag_absmax": 0}
+HOST_F64_ROWS = (0, 1, 2, 4999, 5000, 9997, 9998, 9999)
+# The float32 card run against float64 NumPy on the same record: each of the
+# rfft (1024 points), the 7-window mean and the irfft rounds at ~1e-7
+# relative, and the peaks are normalised by the largest (a zero-lag
+# autocorrelation, ~1000 for unit white noise), so ~1e-7 is expected (7.2e-8
+# for the port's CPU float32 run at 400 channels).  1e-5 leaves a factor 100
+# for cuFFT's other rounding; the ceiling set for this check is 1e-4.
+ALLPAIRS_PEAK_REL_TOL = 1e-5
+SLEEP_CYCLES = 20_000_000          # device sleep ahead of each timed group (event_ms)
 
 
 def log(msg: str) -> None:
@@ -89,6 +119,88 @@ def device_ms(fn, inner: int = 50, replays: int = WARM_RUNS * 2) -> float:
         stop.synchronize()
         per_replay.append(start.elapsed_time(stop))
     return float(np.median(per_replay)) / inner
+
+
+def event_ms(fn, reps: int, groups: int = WARM_RUNS) -> float:
+    """Device time per call of ``fn`` for calls too large for a CUDA graph of
+    many: ``groups`` groups of ``reps`` calls back to back between CUDA
+    events, each group queued behind a device sleep so that the host's
+    enqueue time stays out of the reading; the median group over ``reps``."""
+    fn()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    per_group = []
+    for _ in range(groups):
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        for _ in range(reps):
+            fn()
+        stop.record()
+        stop.synchronize()
+        per_group.append(start.elapsed_time(stop) / reps)
+    return float(np.median(per_group))
+
+
+def _counted():
+    from das_diff_veh_tpu_torch.ops import cross_spectra, lag_absmax, traj_gather
+
+    return {"traj_gather": traj_gather, "cross_spectra": cross_spectra,
+            "lag_absmax": lag_absmax}
+
+
+def reset_counts() -> None:
+    for mod in _counted().values():
+        mod.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: mod.launches for name, mod in _counted().items()}
+
+
+@contextmanager
+def swapped_launches(cross_spectra_fn, lag_absmax_fn):
+    """Inside: the all-pairs wrappers call these in place of the kernels'
+    launch functions (``cross_spectra_cuda``, ``lag_absmax_cuda``)."""
+    from das_diff_veh_tpu_torch.ops import cross_spectra as cs
+    from das_diff_veh_tpu_torch.ops import lag_absmax as la
+
+    saved = cs.cross_spectra_cuda, la.lag_absmax_cuda
+    cs.cross_spectra_cuda, la.lag_absmax_cuda = cross_spectra_fn, lag_absmax_fn
+    try:
+        yield
+    finally:
+        cs.cross_spectra_cuda, la.lag_absmax_cuda = saved
+
+
+def plain_kernels():
+    """Inside: the kernels' plain versions run on the card instead of the
+    kernels (the card's plain path)."""
+    from das_diff_veh_tpu_torch.ops import cross_spectra as cs
+    from das_diff_veh_tpu_torch.ops import lag_absmax as la
+
+    return swapped_launches(cs.cross_spectra_plain, la.lag_absmax_plain)
+
+
+def first_inputs(captured: dict):
+    """Inside: the kernels launch as always, and the arguments of the first
+    launch of B3 and of B4 are kept in ``captured``."""
+    from das_diff_veh_tpu_torch.ops import cross_spectra as cs
+    from das_diff_veh_tpu_torch.ops import lag_absmax as la
+
+    def keeping(name, launch):
+        def call(*args):
+            captured.setdefault(name, args)
+            return launch(*args)
+        return call
+
+    return swapped_launches(keeping("cross_spectra", cs.cross_spectra_cuda),
+                            keeping("lag_absmax", la.lag_absmax_cuda))
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit for bit, NaN where NaN (``torch.equal`` counts NaN unequal)."""
+    nan = torch.isnan(a)
+    return bool(torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan], b[~nan]))
 
 
 def phase_device() -> dict:
@@ -185,19 +297,21 @@ def phase_main_path(section) -> dict:
     tg.pack_windows_cuda = recording
     try:
         torch.cuda.synchronize()
-        tg.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         res = process_chunk(sec32, cfg, method="xcorr", device="cuda")
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
-        launches = tg.launches
+        counts = read_counts()
     finally:
         tg.pack_windows_cuda = launch
-    log(f"main path: first chunk {first_s:.3f} s, traj_gather launches {launches}, "
+    launches = counts["traj_gather"]
+    log(f"main path: first chunk {first_s:.3f} s, launches {counts}, "
         f"n_windows {res.n_windows}")
     img = res.disp_image
-    if launches != 2:
-        raise AssertionError(f"expected 2 traj_gather launches per chunk, got {launches}")
+    if counts != {"traj_gather": 2, "cross_spectra": 0, "lag_absmax": 0}:
+        raise AssertionError(f"expected 2 traj_gather launches per chunk and no other, "
+                             f"got {counts}")
     if res.n_windows <= 0:
         raise AssertionError("the chunk isolated no window: the image would be all zero")
     if tuple(img.shape) != (cfg.dispersion.n_vels, cfg.dispersion.n_freqs):
@@ -271,18 +385,17 @@ def phase_times(main: dict) -> dict:
             "kernels": [kernel], "bytes": nbytes, "launch_shapes": shapes}
 
 
-def phase_profile(main: dict) -> dict:
-    """Device time by operator over one warm chunk (``--profile``): the
-    device's busy share of the chunk's wall time and the largest consumers."""
+def profile_call(label: str, fn) -> dict:
+    """Device time by operator over one warm call of ``fn`` (``--profile``):
+    the device's busy share of the call's wall time and the largest
+    consumers."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    from das_diff_veh_tpu_torch.pipeline.timelapse import process_chunk
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        process_chunk(main["sec32"], main["cfg"], method="xcorr", device="cuda")
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side rows only (kernels, copies): an operator's row repeats the
@@ -292,7 +405,7 @@ def phase_profile(main: dict) -> dict:
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
     n_kernels = sum(r[2] for r in rows)
-    log(f"profile: wall {wall_ms:.3f} ms (profiled), device busy {busy_ms:.3f} ms "
+    log(f"profile of {label}: wall {wall_ms:.3f} ms (profiled), device busy {busy_ms:.3f} ms "
         f"({100 * busy_ms / wall_ms:.1f} %), {n_kernels} kernels and copies")
     for key, ms, count in rows[:15]:
         log(f"  {ms:10.4f} ms  x{count:<6d} {key[:90]}")
@@ -300,11 +413,267 @@ def phase_profile(main: dict) -> dict:
             "top": [{"op": k, "device_ms": m, "count": c} for k, m, c in rows[:40]]}
 
 
+def phase_profile(main: dict) -> dict:
+    """One warm chunk under the profiler."""
+    from das_diff_veh_tpu_torch.pipeline.timelapse import process_chunk
+
+    return profile_call("one chunk", lambda: process_chunk(
+        main["sec32"], main["cfg"], method="xcorr", device="cuda"))
+
+
+def phase_allpairs_kernels_vs_plain() -> dict:
+    """B3 and B4 against their plain versions on the card at edge shapes.
+    Both must be equal bit for bit: B3 rounds every product and sum where its
+    plain version does, in the same order (no FMA contraction), and B4's max
+    is a selection."""
+    from das_diff_veh_tpu_torch.ops import all_pairs as ap
+    from das_diff_veh_tpu_torch.ops import cross_spectra as cs
+    from das_diff_veh_tpu_torch.ops import lag_absmax as la
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    out = {}
+    # (m, nall, nwin, nf, win_block): one source row; receivers off the
+    # 16-row tile; 513 frequencies (off the 32-lane block); a ragged slab
+    # (7 = 3 + 3 + 1); one slab; and the automatic 32-window slabs past 48
+    b3_cases = {"m1_ragged_slab": (1, 10000 - 7, 7, 513, 3),
+                "ragged_tiles_one_slab": (64, 1001, 7, 513, None),
+                "auto_slabs": (9, 50, 50, 33, None)}
+    for name, (m, nall, nwin, nf, wb) in b3_cases.items():
+        wb = ap._resolve_win_block(nwin, wb)
+        src = torch.randn((m, nwin, nf), generator=gen, device="cuda", dtype=torch.complex64)
+        rcv = torch.randn((nall, nwin, nf), generator=gen, device="cuda",
+                          dtype=torch.complex64)
+        k = cs.cross_spectra_cuda(src, rcv, nwin, wb)
+        p = cs.cross_spectra_plain(src, rcv, nwin, wb)
+        torch.cuda.synchronize()
+        err = float((k - p).abs().max())
+        log(f"B3 vs plain [{name}: m={m} nall={nall} nwin={nwin} nf={nf} win_block={wb}]: "
+            f"equal={torch.equal(k, p)} max_abs_err={err}")
+        if not torch.equal(k, p):
+            raise AssertionError(f"cross_spectra kernel != plain version in case {name}")
+        out[f"cross_spectra/{name}"] = {"equal": True, "max_abs_err": err}
+    for nlag in (1024, 1023, 5):
+        lag = torch.randn((4099, nlag), generator=gen, device="cuda")
+        lag[3, nlag // 2] = float("nan")
+        lag[5] = 0.0
+        k = la.lag_absmax_cuda(lag)
+        p = la.lag_absmax_plain(lag)
+        torch.cuda.synchronize()
+        equal = same_bits(k, p) and bool(torch.isnan(k[3])) and float(k[5]) == 0.0
+        log(f"B4 vs plain [npairs=4099 nlag={nlag}, a NaN row, an all-zero row]: "
+            f"equal={equal}")
+        if not equal:
+            raise AssertionError(f"lag_absmax kernel != plain version at nlag={nlag}")
+        out[f"lag_absmax/nlag{nlag}"] = {"equal": True}
+    return out
+
+
+def _host_peak_f64(record: np.ndarray, rows, wlen: int) -> np.ndarray:
+    """Peak |xcorr| of ``rows`` against every channel in float64 NumPy: the
+    window-mean cross-spectrum of each pair, irfft, max |.| over the lags."""
+    x = record.astype(np.float64)
+    offset = wlen // 2
+    nwin = (x.shape[1] - wlen) // offset + 1
+    spec = np.fft.rfft(x[:, np.arange(nwin)[:, None] * offset + np.arange(wlen)], axis=-1)
+    out = np.empty((len(rows), x.shape[0]))
+    for i, s in enumerate(rows):
+        cross = (spec[s][None] * spec.conj()).mean(axis=1)
+        out[i] = np.abs(np.fft.irfft(cross, n=wlen, axis=-1)).max(axis=-1)
+    return out
+
+
+def phase_allpairs_path(profile: bool = False) -> dict:
+    """``xcorr_all_pairs_peak`` at config 4 on the card: launch counts, the
+    card's plain path on the first and the ragged last source chunk, float64
+    NumPy on 8 source rows, B3's per-pair invariance, the warm wall time and,
+    with ``profile``, device time by kernel over one warm call."""
+    from das_diff_veh_tpu_torch.ops import all_pairs as ap
+    from das_diff_veh_tpu_torch.ops import cross_spectra as cs
+    from das_diff_veh_tpu_torch.workloads import make_ambient_record
+
+    nch, wlen = ALLPAIRS["nch"], ALLPAIRS["wlen"]
+    rec = make_ambient_record(nch, ALLPAIRS["nt"], seed=ALLPAIRS["seed"])
+    captured = {}
+    with first_inputs(captured):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        peak = ap.xcorr_all_pairs_peak(rec, wlen)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        counts = read_counts()
+    log(f"all-pairs path: xcorr_all_pairs_peak {tuple(rec.shape)} wlen={wlen} first call "
+        f"{first_s:.3f} s, launches {counts}")
+    if counts != ALLPAIRS_LAUNCHES:
+        raise AssertionError(f"expected launches {ALLPAIRS_LAUNCHES}, got {counts}")
+    if not (peak.is_cuda and peak.dtype == torch.float32 and tuple(peak.shape) == (nch, nch)
+            and bool(torch.isfinite(peak).all())):
+        raise AssertionError("the peaks must be a finite (nch, nch) float32 tensor on the card")
+
+    wf = ap._window_spectra(rec, wlen, 0.5)
+    plain_equal = {}
+    chunk = 64                                   # the entry's default src_chunk
+    last = slice((nch - 1) // chunk * chunk, nch)  # 16 rows at config 4
+    for label, rows in (("first_chunk", slice(0, chunk)), ("ragged_last_chunk", last)):
+        with plain_kernels():
+            ref = ap.peak_from_spectra(wf[rows], wf, wlen, chunk, True)
+        plain_equal[label] = bool(torch.equal(peak[rows], ref))
+    log(f"vs the card's plain path (kernels' plain versions, same shapes): {plain_equal}")
+    if not all(plain_equal.values()):
+        raise AssertionError(f"all-pairs peaks differ from the card's plain path: {plain_equal}")
+
+    t0 = time.perf_counter()
+    host = _host_peak_f64(rec.cpu().numpy(), HOST_F64_ROWS, wlen)
+    got = peak[list(HOST_F64_ROWS)].double().cpu().numpy()
+    f64_err = float(np.abs(got - host).max() / np.abs(host).max())
+    f64_elem = float((np.abs(got - host) / host).max())
+    log(f"vs float64 NumPy ({len(HOST_F64_ROWS)} source rows x {nch}, "
+        f"{time.perf_counter() - t0:.1f} s): peak-rel {f64_err:.3e} "
+        f"(tol {ALLPAIRS_PEAK_REL_TOL}), largest pair-relative {f64_elem:.3e}")
+    if not f64_err <= ALLPAIRS_PEAK_REL_TOL:
+        raise AssertionError(f"peaks differ from float64 NumPy by {f64_err:.3e}")
+
+    nwin = wf.shape[1]
+    sub = slice(nch // 10, 3 * nch // 10 + 1)
+    k64 = cs.cross_spectra_cuda(wf[:64], wf, nwin, nwin)
+    k16 = cs.cross_spectra_cuda(wf[:16], wf, nwin, nwin)
+    ksub = cs.cross_spectra_cuda(wf[:16], wf[sub].contiguous(), nwin, nwin)
+    invariant = bool(torch.equal(k64[:16], k16) and torch.equal(k16[:, sub], ksub))
+    log(f"B3 per-pair invariance (64 vs 16 source rows, receivers {sub.start}:{sub.stop}): "
+        f"{invariant}")
+    if not invariant:
+        raise AssertionError("B3's result for a pair depends on the launch's shape")
+    del k64, k16, ksub, wf, ref, peak
+
+    walls = []
+    torch.cuda.synchronize()
+    held_bytes = torch.cuda.memory_allocated()   # the record and the kept B3/B4 inputs
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ap.xcorr_all_pairs_peak(rec, wlen)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    peak_bytes = torch.cuda.max_memory_allocated()
+    log(f"all-pairs wall ms over 3 warm calls: {[round(w, 3) for w in walls]} (median "
+        f"{float(np.median(walls)):.3f}), device memory peak {peak_bytes} B "
+        f"({held_bytes} B held before the calls)")
+    prof = profile_call("xcorr_all_pairs_peak at config 4",
+                        lambda: ap.xcorr_all_pairs_peak(rec, wlen)) if profile else None
+    return {"first_call_s": first_s, "launches": counts, "plain_path_equal": plain_equal,
+            "f64_peak_rel_err": f64_err, "f64_largest_pair_rel_err": f64_elem,
+            "b3_pair_invariant": invariant, "wall_ms": walls,
+            "wall_ms_median": float(np.median(walls)), "device_memory_peak_bytes": peak_bytes,
+            "device_memory_held_bytes": held_bytes, "profile": prof, "captured": captured}
+
+
+def phase_lag_domain() -> dict:
+    """``xcorr_all_pairs`` at 4096 x 4096 channels keeping 129 lags (an
+    8.66 GB result) on the card: launch counts and the card's plain path on
+    the first and the last source chunk."""
+    from das_diff_veh_tpu_torch.ops import all_pairs as ap
+    from das_diff_veh_tpu_torch.workloads import make_ambient_record
+
+    nch, wlen, keep = LAG_DOMAIN["nch"], LAG_DOMAIN["wlen"], LAG_DOMAIN["lag_keep"]
+    rec = make_ambient_record(nch, LAG_DOMAIN["nt"], seed=LAG_DOMAIN["seed"])
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    lags = ap.xcorr_all_pairs(rec, wlen, lag_keep=keep)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    log(f"lag-domain path: xcorr_all_pairs {tuple(rec.shape)} wlen={wlen} lag_keep={keep}: "
+        f"{tuple(lags.shape)} in {wall:.3f} s (first call), launches {counts}")
+    if counts != LAG_DOMAIN_LAUNCHES:
+        raise AssertionError(f"expected launches {LAG_DOMAIN_LAUNCHES}, got {counts}")
+    if not (lags.is_cuda and lags.dtype == torch.float32
+            and tuple(lags.shape) == (nch, nch, 2 * keep + 1)
+            and bool(torch.isfinite(lags).all())):
+        raise AssertionError("the lags must be a finite (nch, nch, 129) float32 tensor")
+    wf = ap._window_spectra(rec, wlen, 0.5)
+    mid = wlen // 2
+    equal = {}
+    with plain_kernels():
+        cross = ap._make_cross_fn(wf, True, ap._resolve_win_block(wf.shape[1], None))
+        chunk = 128                              # the entry's default src_chunk
+        for label, rows in (("first_chunk", slice(0, chunk)),
+                            ("last_chunk", slice(nch - chunk, nch))):
+            c = torch.fft.irfft(cross(wf[rows]), n=wlen, dim=-1)
+            ref = torch.roll(c, mid, dims=-1)[..., mid - keep:mid + keep + 1]
+            equal[label] = bool(torch.equal(lags[rows], ref))
+    log(f"vs the card's plain path: {equal}")
+    if not all(equal.values()):
+        raise AssertionError(f"lag-domain result differs from the card's plain path: {equal}")
+    return {"first_call_s": wall, "launches": counts, "plain_path_equal": equal,
+            "result_bytes": lags.numel() * 4}
+
+
+def _bound(nbytes: float, ops: float) -> tuple:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_allpairs_times(path: dict) -> list:
+    """B3 and B4 on the inputs of their first launch on the config-4 path
+    (single launches between CUDA events; each output is ~2.6 GB for B3, too
+    large for a CUDA graph of many calls), beside their bounds, their plain
+    versions and one PyTorch call computing the same function."""
+    from das_diff_veh_tpu_torch.ops import cross_spectra as cs
+    from das_diff_veh_tpu_torch.ops import lag_absmax as la
+
+    src, rcv, nwin, wb = path["captured"]["cross_spectra"]
+    (lag,) = path["captured"]["lag_absmax"]
+    m, nall, nf = src.shape[0], rcv.shape[0], src.shape[2]
+    k, p = cs.cross_spectra_cuda(src, rcv, nwin, wb), cs.cross_spectra_plain(src, rcv, nwin, wb)
+    b3_err = float((k - p).abs().max())
+    if not torch.equal(k, p):
+        raise AssertionError("B3 != plain version on the path's inputs")
+    del k, p
+    b3 = {"ms": event_ms(lambda: cs.cross_spectra_cuda(src, rcv, nwin, wb), reps=5),
+          "plain_ms": event_ms(lambda: cs.cross_spectra_plain(src, rcv, nwin, wb), reps=2),
+          "library_ms": event_ms(lambda: torch.einsum("swf,rwf->srf", src, rcv.conj()) / nwin,
+                                 reps=5)}
+    b3_bound, b3_by = _bound(cs.bytes_moved(m, nall, nwin, nf), cs.flops(m, nall, nwin, nf))
+    npairs, nlag = lag.shape
+    k, p = la.lag_absmax_cuda(lag), la.lag_absmax_plain(lag)
+    if not same_bits(k, p):
+        raise AssertionError("B4 != plain version on the path's inputs")
+    b4_err = float((k - p).abs().max())
+    inf = float("inf")
+    b4 = {"ms": event_ms(lambda: la.lag_absmax_cuda(lag), reps=50),
+          "plain_ms": event_ms(lambda: la.lag_absmax_plain(lag), reps=50),
+          "library_ms": event_ms(lambda: torch.linalg.vector_norm(lag, ord=inf, dim=-1),
+                                 reps=50)}
+    b4_bound, b4_by = _bound(la.bytes_moved(npairs, nlag), 2 * npairs * nlag)
+    log(f"B3 per launch (m={m}, nall={nall}, nwin={nwin}, nf={nf}, win_block={wb}): kernel "
+        f"{b3['ms']:.4f} ms, plain {b3['plain_ms']:.4f} ms, einsum {b3['library_ms']:.4f} ms, "
+        f"bound {b3_bound:.4f} ms ({b3_by})")
+    log(f"B4 per launch (npairs={npairs}, nlag={nlag}): kernel {b4['ms']:.5f} ms, plain "
+        f"{b4['plain_ms']:.5f} ms, vector_norm {b4['library_ms']:.5f} ms, bound "
+        f"{b4_bound:.5f} ms ({b4_by})")
+    launches = path["launches"]
+    return [
+        {"name": "cross_spectra", "route": "cuda",
+         "source": "das_diff_veh_tpu_torch/csrc/cross_spectra.cu",
+         "replaces": "das_diff_veh_tpu/ops/pallas_xcorr.py:230",
+         "launches": launches["cross_spectra"], "max_abs_err": b3_err, **b3,
+         "bound_ms": b3_bound, "bound_by": b3_by},
+        {"name": "lag_absmax", "route": "cuda",
+         "source": "das_diff_veh_tpu_torch/csrc/lag_absmax.cu",
+         "replaces": "das_diff_veh_tpu/ops/pallas_xcorr.py:137",
+         "launches": launches["lag_absmax"], "max_abs_err": b4_err, **b4,
+         "bound_ms": b4_bound, "bound_by": b4_by},
+    ]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement to this JSON file")
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one warm chunk with torch.profiler")
+                    help="also profile one warm chunk and one warm all-pairs call "
+                         "with torch.profiler")
     args = ap.parse_args()
     sys.path.insert(0, str(REPO))
     results = {}
@@ -320,6 +689,13 @@ def main() -> int:
             results["profile"] = phase_profile(main_path)
         results["main_path"] = {k: v for k, v in main_path.items()
                                 if k not in ("captured", "sec32", "cfg")}
+        del main_path
+        results["allpairs_kernels_vs_plain"] = phase_allpairs_kernels_vs_plain()
+        allpairs = phase_allpairs_path(profile=args.profile)
+        results["lag_domain"] = phase_lag_domain()
+        results["times"]["kernels"] += phase_allpairs_times(allpairs)
+        results["allpairs"] = {k: v for k, v in allpairs.items() if k != "captured"}
+        del allpairs
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr, flush=True)
@@ -331,6 +707,8 @@ def main() -> int:
     log(json.dumps({"chunk": {"wall_ms_median": results["times"]["chunk_wall_ms_median"],
                               "n_windows": results["main_path"]["n_windows"],
                               "image_peak_rel_err": results["main_path"]["image_peak_rel_err"]}}))
+    log(json.dumps({"allpairs": {k: results["allpairs"][k] for k in (
+        "wall_ms_median", "device_memory_peak_bytes", "f64_peak_rel_err")}}))
     log(dev["nvidia_smi"])
     log(json.dumps({"kernels": results["times"]["kernels"]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev["kind"],

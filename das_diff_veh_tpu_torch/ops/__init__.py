@@ -1,2 +1,3 @@
 """Numerical operators of the port: filters, resampling, peaks,
-correlation, dispersion, and the trajectory gather kernel's wrapper."""
+correlation, dispersion, the all-pairs correlation, and the wrappers of the
+hand-written kernels (trajectory gather, cross-spectra, lag-axis peak)."""

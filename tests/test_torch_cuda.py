@@ -101,3 +101,118 @@ def test_small_chunk_on_card_matches_cpu(card):
     err = (got.disp_image.double().cpu() - want.disp_image).abs().max()
     # float32 against float64, the same bound and reason as chip_smoke.py
     assert float(err / want.disp_image.abs().max()) <= 1e-3
+
+
+# ---- the all-pairs kernels: B3 (cross_spectra.cu) and B4 (lag_absmax.cu) ----
+
+# (m, nall, nwin, nf, win_block): one source row; receivers off the 16-row
+# tile; the config-4 513 frequencies; a ragged slab (7 = 3 + 3 + 1); and the
+# automatic 32-window slabs past 48 windows
+B3_CASES = {
+    "one_source_ragged_slab": (1, 37, 7, 513, 3),
+    "ragged_tiles_one_slab": (20, 100, 7, 513, None),
+    "auto_slabs": (9, 50, 50, 33, None),
+}
+
+
+def _spectra(card, n, nwin, nf, seed):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    return torch.randn((n, nwin, nf), generator=gen, device=card, dtype=torch.complex64)
+
+
+def _same(a, b):
+    """Equal bit for bit, NaN where NaN (torch.equal counts NaN unequal)."""
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan], b[~nan])
+
+
+@pytest.mark.parametrize("case", sorted(B3_CASES))
+def test_cross_spectra_kernel_equals_plain(card, case):
+    from das_diff_veh_tpu_torch.ops import all_pairs as ap
+    from das_diff_veh_tpu_torch.ops import cross_spectra as cs
+
+    m, nall, nwin, nf, wb = B3_CASES[case]
+    wb = ap._resolve_win_block(nwin, wb)
+    rcv = _spectra(card, nall, nwin, nf, 5)
+    src = rcv[:m].contiguous() if m <= nall else _spectra(card, m, nwin, nf, 6)
+    before = cs.launches
+    k = cs.cross_spectra(src, rcv, nwin, wb)
+    p = cs.cross_spectra_plain(src, rcv, nwin, wb)
+    torch.cuda.synchronize()
+    assert cs.launches == before + 1
+    assert k.shape == (m, nall, nf) and k.dtype == torch.complex64
+    # the kernel rounds every product and sum where the plain version does
+    assert torch.equal(k, p)
+
+
+def test_cross_spectra_pairs_do_not_depend_on_tiling(card):
+    """One pair's sum is the same bits whatever the number of source rows in
+    the launch and whatever receiver set it runs against."""
+    from das_diff_veh_tpu_torch.ops import cross_spectra as cs
+
+    rcv = _spectra(card, 300, 7, 513, 8)
+    full = cs.cross_spectra_cuda(rcv[:64].contiguous(), rcv, 7, 7)
+    few = cs.cross_spectra_cuda(rcv[:16].contiguous(), rcv, 7, 7)
+    subset = cs.cross_spectra_cuda(rcv[:16].contiguous(), rcv[101:250].contiguous(), 7, 7)
+    assert torch.equal(full[:16], few)
+    assert torch.equal(few[:, 101:250], subset)
+
+
+@pytest.mark.parametrize("nlag", [1024, 1023, 5])
+def test_lag_absmax_kernel_equals_plain(card, nlag):
+    from das_diff_veh_tpu_torch.ops import lag_absmax as la
+
+    gen = torch.Generator(device=card).manual_seed(9)
+    lag = torch.randn((1000, nlag), generator=gen, device=card)
+    lag[3, nlag // 2] = float("nan")
+    lag[5] = 0.0
+    before = la.launches
+    k = la.lag_absmax(lag)
+    p = la.lag_absmax_plain(lag)
+    torch.cuda.synchronize()
+    assert la.launches == before + 1
+    assert torch.isnan(k[3]) and k[5] == 0.0
+    assert _same(k, p)
+
+
+def test_all_pairs_kernels_reject_what_they_do_not_take(card):
+    from das_diff_veh_tpu_torch.ops import cross_spectra as cs
+    from das_diff_veh_tpu_torch.ops import lag_absmax as la
+
+    s = _spectra(card, 4, 7, 33, 1)
+    with pytest.raises(ValueError, match="complex64"):
+        cs.cross_spectra_cuda(s.to(torch.complex128), s, 7, 7)
+    with pytest.raises(ValueError, match="contiguous"):
+        cs.cross_spectra_cuda(s, s.transpose(0, 1).contiguous().transpose(0, 1), 7, 7)
+    with pytest.raises(ValueError, match="win_block"):
+        cs.cross_spectra_cuda(s, s, 7, 8)
+    with pytest.raises(ValueError, match="float32"):
+        la.lag_absmax_cuda(torch.zeros((4, 8), dtype=torch.float64, device=card))
+    with pytest.raises(ValueError, match="contiguous"):
+        la.lag_absmax_cuda(torch.zeros((8, 4), device=card).t())
+
+
+def test_all_pairs_peak_on_card(card):
+    """A small record through the kernel path on the card: the launch counts,
+    the card's plain path bit for bit, and the CPU plain path at float32."""
+    from das_diff_veh_tpu_torch.ops import all_pairs as ap
+    from das_diff_veh_tpu_torch.ops import cross_spectra as cs
+    from das_diff_veh_tpu_torch.ops import lag_absmax as la
+    from das_diff_veh_tpu_torch.workloads import make_ambient_record
+
+    rec = make_ambient_record(100, 1200, seed=4, device=card)
+    kw = dict(src_chunk=16, use_kernel=True, lagmax_block=32)
+    cs.launches = la.launches = 0
+    got = ap.xcorr_all_pairs_peak(rec, 128, device=card, **kw)
+    torch.cuda.synchronize()
+    assert (cs.launches, la.launches) == (7, 7 * 4)     # ceil(100/16), x ceil(100/32)
+    cuda_fns = cs.cross_spectra_cuda, la.lag_absmax_cuda
+    try:
+        cs.cross_spectra_cuda, la.lag_absmax_cuda = cs.cross_spectra_plain, la.lag_absmax_plain
+        plain = ap.xcorr_all_pairs_peak(rec, 128, device=card, **kw)
+    finally:
+        cs.cross_spectra_cuda, la.lag_absmax_cuda = cuda_fns
+    assert torch.equal(got, plain)
+    cpu = ap.xcorr_all_pairs_peak(rec.cpu(), 128, device="cpu", **kw)
+    # cuFFT and pocketfft round float32 differently (~1e-7 peak-relative)
+    assert float((got.cpu() - cpu).abs().max() / cpu.abs().max()) <= 1e-5

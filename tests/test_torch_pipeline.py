@@ -73,6 +73,11 @@ def test_port_runs_a_chunk_without_loading_jax():
         cfg = PipelineConfig().replace(imaging=ImagingConfig(x0=250.0))
         r = process_chunk(sec, cfg, device="cpu")
         assert bool(torch.isfinite(r.disp_image).all()), "non-finite image"
+        from das_diff_veh_tpu_torch.ops.all_pairs import xcorr_all_pairs_peak
+        from das_diff_veh_tpu_torch.workloads import make_ambient_record
+        peak = xcorr_all_pairs_peak(make_ambient_record(12, 300, device="cpu"), 64,
+                                    src_chunk=4, use_kernel=True, device="cpu")
+        assert peak.shape == (12, 12) and bool(torch.isfinite(peak).all())
         loaded = [m for m in sys.modules
                   if m.split(".")[0] in ("jax", "jaxlib", "das_diff_veh_tpu")]
         assert not loaded, loaded
