@@ -28,7 +28,26 @@ Phases, each of which must pass:
    NumPy computation; then ``xcorr_all_pairs`` in the lag domain at 4096 x
    4096 channels with 129 lags, held against its plain path;
 9. all-pairs times: B3 and B4 on the inputs the path gave them, beside their
-   bounds, their plain versions and one PyTorch call computing the same.
+   bounds, their plain versions and one PyTorch call computing the same;
+10. dot kernel vs plain: the dot finish (B2) against its plain version on the
+   card in both precision tiers, forward and swapped, at edge shapes (wlen
+   250, 256, 64 and 33; one window, and 16 at wlen 256, the joint cap; 64
+   slots of 18, 7 or 1 rows; rows truncated at the record end and backward
+   empty slices); equal bit for bit;
+11. dot chunk: the chunk scene through ``process_chunk(method="xcorr")`` with
+   a 1 s window and ``traj_gather_finish="dot"`` (2 launches of B2, none of
+   B1), held against the port's CPU float64 run; the dot-vs-rfft image gap on
+   the card; the same chunk in the bf16 tiers against the float32 one; then
+   the chunk with 16 s windows, where the time-reversed launch reaches the
+   image, against its CPU float64 run (its rows live, and the image moved
+   when that launch returns zeros);
+12. surface_wave chunk: the chunk scene through ``process_chunk(method=
+   "surface_wave")`` against its CPU float64 run, and the phase-shift image
+   of the dot chunk's stack against the CPU float64 one;
+13. dot times: B2 per chunk in both tiers on the inputs the dot chunks gave
+   it, beside its bound and its plain version; the rfft finish on the same
+   inputs as a yardstick; the warm wall times of the dot and surface_wave
+   chunks (``--profile`` adds a per-operator breakdown of each).
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -39,6 +58,7 @@ no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -70,9 +90,9 @@ WARM_RUNS = 5
 # (src_chunk=64, lagmax_block=512) give ceil(10000/64) = 157 launches of B3
 # and 157 * ceil(10000/512) = 3140 of B4.
 ALLPAIRS = dict(nch=10000, nt=4096, seed=3, wlen=1024)
-ALLPAIRS_LAUNCHES = {"traj_gather": 0, "cross_spectra": 157, "lag_absmax": 3140}
+ALLPAIRS_LAUNCHES = {"traj_gather": 0, "traj_dot": 0, "cross_spectra": 157, "lag_absmax": 3140}
 LAG_DOMAIN = dict(nch=4096, nt=4096, seed=3, wlen=1024, lag_keep=64)
-LAG_DOMAIN_LAUNCHES = {"traj_gather": 0, "cross_spectra": 32, "lag_absmax": 0}
+LAG_DOMAIN_LAUNCHES = {"traj_gather": 0, "traj_dot": 0, "cross_spectra": 32, "lag_absmax": 0}
 HOST_F64_ROWS = (0, 1, 2, 4999, 5000, 9997, 9998, 9999)
 # The float32 card run against float64 NumPy on the same record: each of the
 # rfft (1024 points), the 7-window mean and the irfft rounds at ~1e-7
@@ -82,6 +102,29 @@ HOST_F64_ROWS = (0, 1, 2, 4999, 5000, 9997, 9998, 9999)
 # for cuFFT's other rounding; the ceiling set for this check is 1e-4.
 ALLPAIRS_PEAK_REL_TOL = 1e-5
 SLEEP_CYCLES = 20_000_000          # device sleep ahead of each timed group (event_ms)
+CHUNK_LAUNCHES = {"traj_gather": 2, "traj_dot": 0, "cross_spectra": 0, "lag_absmax": 0}
+# The dot chunk: GatherConfig(wlen=1.0, traj_gather_finish="dot") at 250 Hz gives
+# wlen 250, nsamp 999, offset 125, nwin 6 (nwin*wlen^2 = 375000, inside both
+# caps); "auto" takes B2 on both trajectory sides and B1 never.
+DOT_WLEN_S = 1.0
+DOT_LAUNCHES = {"traj_gather": 0, "traj_dot": 2, "cross_spectra": 0, "lag_absmax": 0}
+# With the default 8 s windows the vehicle sits at the window's centre, so
+# every time-reversed row (which ends delta_t before the vehicle reaches its
+# channel) has less than time_window of record before it: a backward empty
+# slice.  16 s windows at the default 8 s isolation spacing leave the rows
+# near the pivot live, and the image then sees both B2 launches.
+LIVE_WINDOW = dict(wlen_sw=16.0, temporal_spacing=8.0)
+NO_LAUNCHES = {"traj_gather": 0, "traj_dot": 0, "cross_spectra": 0, "lag_absmax": 0}
+# (name, wlen, nsamp) of the B2 edge cases; offset wlen//2
+DOT_CASES = (("wlen250_nwin6", 250, 999), ("wlen256_nwin16", 256, 15 * 128 + 256),
+             ("wlen256_nwin1", 256, 300), ("wlen64_nwin8", 64, 7 * 32 + 64),
+             ("wlen33_nwin1", 33, 40))
+# The bf16 chunk against the float32 card chunk: the image within the sum of
+# the gather-dot (2e-2) and f-k (3e-2) bf16 budgets of tests/test_precision.py,
+# the stack (which only the gather's tier reaches) within the gather-dot one.
+GATHER_DOT_BF16_BUDGET = 2e-2
+BF16_IMAGE_BUDGET = 5e-2
+BF16_OPS_PER_S = 989e12            # H100 SXM bf16 tensor cores, dense (data sheet)
 
 
 def log(msg: str) -> None:
@@ -142,19 +185,22 @@ def event_ms(fn, reps: int, groups: int = WARM_RUNS) -> float:
 
 
 def _counted():
+    """Kernel name -> (wrapper module, its launch counter)."""
     from das_diff_veh_tpu_torch.ops import cross_spectra, lag_absmax, traj_gather
 
-    return {"traj_gather": traj_gather, "cross_spectra": cross_spectra,
-            "lag_absmax": lag_absmax}
+    return {"traj_gather": (traj_gather, "launches"),
+            "traj_dot": (traj_gather, "dot_launches"),
+            "cross_spectra": (cross_spectra, "launches"),
+            "lag_absmax": (lag_absmax, "launches")}
 
 
 def reset_counts() -> None:
-    for mod in _counted().values():
-        mod.launches = 0
+    for mod, attr in _counted().values():
+        setattr(mod, attr, 0)
 
 
 def read_counts() -> dict:
-    return {name: mod.launches for name, mod in _counted().items()}
+    return {name: getattr(mod, attr) for name, (mod, attr) in _counted().items()}
 
 
 @contextmanager
@@ -309,9 +355,8 @@ def phase_main_path(section) -> dict:
     log(f"main path: first chunk {first_s:.3f} s, launches {counts}, "
         f"n_windows {res.n_windows}")
     img = res.disp_image
-    if counts != {"traj_gather": 2, "cross_spectra": 0, "lag_absmax": 0}:
-        raise AssertionError(f"expected 2 traj_gather launches per chunk and no other, "
-                             f"got {counts}")
+    if counts != CHUNK_LAUNCHES:
+        raise AssertionError(f"expected launches {CHUNK_LAUNCHES} per chunk, got {counts}")
     if res.n_windows <= 0:
         raise AssertionError("the chunk isolated no window: the image would be all zero")
     if tuple(img.shape) != (cfg.dispersion.n_vels, cfg.dispersion.n_freqs):
@@ -333,6 +378,11 @@ def phase_main_path(section) -> dict:
         raise AssertionError("window selection differs from the CPU float64 run")
     if not img_err <= IMAGE_PEAK_REL_TOL:
         raise AssertionError(f"image differs from the CPU float64 run by {img_err:.3e}")
+    # the image's offsets (-150..0 m) take no row that B1 cuts on this scene
+    # (the time-reversed rows of the isolated windows are empty slices), so
+    # the stack is what holds the kernel's output against the CPU
+    if not vsg_err <= IMAGE_PEAK_REL_TOL:
+        raise AssertionError(f"vsg_stack differs from the CPU float64 run by {vsg_err:.3e}")
     return {"first_chunk_s": first_s, "launches": launches, "n_windows": res.n_windows,
             "valid_slots": res.batch.valid.nonzero().flatten().tolist(),
             "tracks_valid_equal": tracks_eq, "image_peak_rel_err": img_err,
@@ -610,8 +660,8 @@ def phase_lag_domain() -> dict:
             "result_bytes": lags.numel() * 4}
 
 
-def _bound(nbytes: float, ops: float) -> tuple:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+def _bound(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S) -> tuple:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -668,12 +718,408 @@ def phase_allpairs_times(path: dict) -> list:
     ]
 
 
+def _dot_cfg(precision: str = "f32", finish: str = "dot"):
+    """The default configuration with a 1 s correlation window through the
+    given finish; ``precision`` sets both the gather's and the image's tier."""
+    from das_diff_veh_tpu_torch.config import PipelineConfig
+
+    cfg = PipelineConfig()
+    return cfg.replace(
+        gather=dataclasses.replace(cfg.gather, wlen=DOT_WLEN_S, traj_gather_finish=finish,
+                                   precision=precision),
+        dispersion=dataclasses.replace(cfg.dispersion, precision=precision))
+
+
+def phase_dot_kernel_vs_plain() -> dict:
+    """B2 against its plain version on the card at the edge shapes of
+    ``DOT_CASES``, both tiers, forward and backward starts, swap off and on.
+    Starts are drawn over [0, nt + nsamp/2), so some rows are truncated at
+    the record end and, backward, some are empty slices (start < nsamp)."""
+    from das_diff_veh_tpu_torch.ops import traj_gather as tg
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    nb, nch, nt, pivot = 64, 37, 4000, 28
+    rec = torch.randn((nb, nch, nt), generator=gen, device="cuda")
+    out = {}
+    seen = {"truncated": 0, "empty": 0}
+    for i, (name, wlen, nsamp) in enumerate(DOT_CASES):
+        offset = wlen // 2
+        nwin = (nsamp - wlen) // offset + 1
+        nk = (18, 7, 1)[i % 3]
+        ch = torch.arange(pivot - nk, pivot, device="cuda")
+        for backward in (False, True):
+            idx = torch.randint(0, nt + nsamp // 2, (nb, nk), generator=gen, device="cuda")
+            scal = tg.traj_scalars(idx, ch, nch, nt, nsamp, backward).contiguous()
+            n_eff = ((torch.arange(nwin, device="cuda") * offset + wlen)
+                     <= scal[..., 1:2]).sum(-1)
+            empty = n_eff == 0
+            seen["truncated"] += int(((n_eff > 0) & (n_eff < nwin)).sum())
+            seen["empty"] += int(empty.sum())
+            for swap in (False, True):
+                for precision in ("f32", "bf16"):
+                    k = tg.correlate_dot_cuda(rec, scal, pivot, nwin, wlen, offset, swap,
+                                              precision)
+                    p = tg.correlate_dot_plain(rec, scal, pivot, nwin, wlen, offset, swap,
+                                               precision)
+                    torch.cuda.synchronize()
+                    equal = bool(torch.equal(k, p))
+                    err = float((k - p).abs().max())
+                    label = (f"{name}/nk{nk}/{'backward' if backward else 'forward'}/"
+                             f"swap{int(swap)}/{precision}")
+                    if not equal:
+                        raise AssertionError(f"traj_dot kernel != plain version in {label}: "
+                                             f"max_abs_err {err}")
+                    if bool(k[empty].any()):
+                        raise AssertionError(f"rows without a valid window must be 0 ({label})")
+                    out[label] = {"equal": equal, "max_abs_err": err}
+        log(f"B2 vs plain [{name}: wlen={wlen} nwin={nwin} nk={nk}, 64 slots, both "
+            f"directions, swap 0/1, f32 and bf16]: equal=True")
+    log(f"B2 edge rows seen: {seen['truncated']} truncated at the record end, "
+        f"{seen['empty']} without a valid window")
+    if not (seen["truncated"] and seen["empty"]):
+        raise AssertionError(f"the edge cases did not reach every edge: {seen}")
+    return {"cases": out, "edge_rows": seen}
+
+
+def _gather_geometry(section, cfg):
+    """``(geometry, offsets, dt)`` of the chunk's gather, as ``chunk_body``
+    builds them."""
+    from das_diff_veh_tpu_torch.models import vsg as V
+    from das_diff_veh_tpu_torch.models.windows import window_x_slice
+
+    x_win = window_x_slice(np.asarray(section.x), cfg.imaging.x0, cfg.window)
+    dt = float(section.t[1] - section.t[0])
+    g = V.VsgGeometry.build(x_win, dt, cfg.imaging.x0,
+                            cfg.imaging.x0 + cfg.imaging.disp_start_x,
+                            cfg.imaging.x0 + cfg.gather.far_offset, cfg.gather)
+    return g, g.offsets(x_win), dt
+
+
+@contextmanager
+def dot_launches_through(fn):
+    """Inside: the dot finish calls ``fn(launch, *args)`` in place of B2's
+    launch function ``correlate_dot_cuda`` (``launch``)."""
+    from das_diff_veh_tpu_torch.ops import traj_gather as tg
+
+    launch = tg.correlate_dot_cuda
+    tg.correlate_dot_cuda = lambda *args: fn(launch, *args)
+    try:
+        yield
+    finally:
+        tg.correlate_dot_cuda = launch
+
+
+def _run_counted(sec, cfg, method: str, keep: list):
+    """One chunk on the card with the counts set to 0 just before it and read
+    just after; ``(arguments, output)`` of every B2 launch go to ``keep``."""
+    from das_diff_veh_tpu_torch.pipeline.timelapse import process_chunk
+
+    def recording(launch, *args):
+        keep.append((args, launch(*args)))
+        return keep[-1][1]
+
+    with dot_launches_through(recording):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = process_chunk(sec, cfg, method=method, device="cuda")
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        counts = read_counts()
+    return res, counts, first_s
+
+
+def _live_rows(captured, valid) -> list:
+    """``[live, rows]`` of each B2 launch: rows of the isolated windows'
+    slots with a nonzero correlation."""
+    return [[int(out[valid].abs().amax(-1).gt(0).sum()), int(out[valid].shape[:2].numel())]
+            for _, out in captured]
+
+
+def _check_image(res, cfg, label: str) -> None:
+    img = res.disp_image
+    if tuple(img.shape) != (cfg.dispersion.n_vels, cfg.dispersion.n_freqs):
+        raise AssertionError(f"{label}: image shape {tuple(img.shape)}")
+    if not (img.is_cuda and img.dtype == torch.float32 and bool(torch.isfinite(img).all())):
+        raise AssertionError(f"{label}: image must be a finite float32 tensor on the card")
+    if res.n_windows <= 0:
+        raise AssertionError(f"{label}: the chunk isolated no window")
+
+
+def phase_dot_chunk(section) -> dict:
+    """The dot chunk on the card (f32 and bf16 tiers), held against the
+    port's CPU float64 run, and its dot-vs-rfft image gap on the card."""
+    from das_diff_veh_tpu_torch.config import DispersionConfig
+    from das_diff_veh_tpu_torch.models import vsg as V
+    from das_diff_veh_tpu_torch.pipeline.timelapse import process_chunk
+
+    cfg = _dot_cfg()
+    sec32 = section.to(dtype=torch.float32)
+    captured = []
+    res, counts, first_s = _run_counted(sec32, cfg, "xcorr", captured)
+    live = _live_rows(captured, res.batch.valid)
+    log(f"dot chunk: first chunk {first_s:.3f} s, launches {counts}, n_windows "
+        f"{res.n_windows}, B2 launch shapes "
+        f"{[(tuple(a[0].shape), tuple(a[1].shape), a[3], a[4], a[6]) for a, _ in captured]}, "
+        f"[live, rows] of the isolated windows per launch {live}")
+    if counts != DOT_LAUNCHES:
+        raise AssertionError(f"expected launches {DOT_LAUNCHES} in the dot chunk, got {counts}")
+    _check_image(res, cfg, "dot chunk")
+
+    t0 = time.perf_counter()
+    ref = process_chunk(section, cfg, method="xcorr", device="cpu")
+    cpu_s = time.perf_counter() - t0
+    valid_eq = bool(torch.equal(res.batch.valid.cpu(), ref.batch.valid))
+    tracks_eq = bool(torch.equal(res.tracks.valid.cpu(), ref.tracks.valid))
+    img_err = peak_rel(res.disp_image, ref.disp_image)
+    vsg_err = peak_rel(res.vsg_stack, ref.vsg_stack)
+    log(f"dot chunk vs CPU float64 ({cpu_s:.1f} s): n_windows {res.n_windows} vs "
+        f"{ref.n_windows}, batch.valid equal {valid_eq}, tracks.valid equal {tracks_eq}, "
+        f"image peak-rel {img_err:.3e} (tol {IMAGE_PEAK_REL_TOL}), vsg_stack peak-rel "
+        f"{vsg_err:.3e}")
+    if res.n_windows != ref.n_windows or not (valid_eq and tracks_eq):
+        raise AssertionError("dot chunk: window or track masks differ from the CPU float64 run")
+    if not img_err <= IMAGE_PEAK_REL_TOL:
+        raise AssertionError(f"dot chunk image differs from the CPU float64 run by {img_err:.3e}")
+    # with 8 s windows only the main side's rows are live, and they reach the
+    # stack, not the image (phase_dot_chunk_live reaches both)
+    if not vsg_err <= IMAGE_PEAK_REL_TOL:
+        raise AssertionError(f"dot chunk vsg_stack differs from the CPU float64 run by "
+                             f"{vsg_err:.3e}")
+
+    rfft = process_chunk(sec32, _dot_cfg(finish="rfft"), method="xcorr", device="cuda")
+    rfft_img_gap = peak_rel(res.disp_image, rfft.disp_image)
+    rfft_vsg_gap = peak_rel(res.vsg_stack, rfft.vsg_stack)
+    log(f"dot vs rfft finish on the card at wlen {DOT_WLEN_S} s: image peak-rel "
+        f"{rfft_img_gap:.3e}, vsg_stack peak-rel {rfft_vsg_gap:.3e}")
+
+    bcfg = _dot_cfg("bf16")
+    captured_bf16 = []
+    bres, bcounts, _ = _run_counted(sec32, bcfg, "xcorr", captured_bf16)
+    _check_image(bres, bcfg, "bf16 dot chunk")
+    bf16_gap = peak_rel(bres.disp_image, res.disp_image)
+    bf16_vsg_gap = peak_rel(bres.vsg_stack, res.vsg_stack)
+    bf16_valid_eq = bool(torch.equal(bres.batch.valid, res.batch.valid))
+    log(f"bf16 dot chunk: launches {bcounts}, batch.valid equal {bf16_valid_eq}, image "
+        f"peak-rel to the f32 card image {bf16_gap:.3e} (budget {BF16_IMAGE_BUDGET}), "
+        f"vsg_stack {bf16_vsg_gap:.3e} (budget {GATHER_DOT_BF16_BUDGET})")
+    if bcounts != DOT_LAUNCHES:
+        raise AssertionError(f"expected launches {DOT_LAUNCHES} in the bf16 chunk, got {bcounts}")
+    if not (bf16_valid_eq and bf16_gap <= BF16_IMAGE_BUDGET
+            and bf16_vsg_gap <= GATHER_DOT_BF16_BUDGET):
+        raise AssertionError(f"bf16 dot chunk: windows equal {bf16_valid_eq}, image gap "
+                             f"{bf16_gap:.3e}, vsg_stack gap {bf16_vsg_gap:.3e}")
+
+    _, offsets, dt = _gather_geometry(section, cfg)
+    ps_cfg = DispersionConfig(method="phase_shift")
+    ps = [V.gather_disp_image(stack, offsets, dt, cfg.interrogator.dx, ps_cfg,
+                              cfg.imaging.disp_start_x, cfg.imaging.disp_end_x)
+          for stack in (res.vsg_stack, ref.vsg_stack)]
+    ps_err = peak_rel(ps[0], ps[1])
+    log(f"phase-shift image of the dot chunk's stack, card vs CPU float64: peak-rel "
+        f"{ps_err:.3e} (tol {IMAGE_PEAK_REL_TOL})")
+    if not (ps[0].is_cuda and bool(torch.isfinite(ps[0]).all()) and ps_err <= IMAGE_PEAK_REL_TOL):
+        raise AssertionError(f"phase-shift image differs from the CPU float64 one by {ps_err:.3e}")
+    return {"first_chunk_s": first_s, "launches": counts, "launches_bf16": bcounts,
+            "n_windows": res.n_windows, "tracks_valid_equal": tracks_eq, "live_rows": live,
+            "image_peak_rel_err": img_err, "vsg_peak_rel_err": vsg_err, "cpu_float64_s": cpu_s,
+            "dot_vs_rfft_image_gap": rfft_img_gap, "dot_vs_rfft_vsg_gap": rfft_vsg_gap,
+            "bf16_vs_f32_image_gap": bf16_gap, "bf16_vs_f32_vsg_gap": bf16_vsg_gap,
+            "phase_shift_peak_rel_err": ps_err,
+            "captured": captured, "captured_bf16": captured_bf16, "sec32": sec32}
+
+
+def phase_dot_chunk_live(section) -> dict:
+    """The dot chunk with ``LIVE_WINDOW``, where both B2 launches have live
+    rows in the isolated windows and the time-reversed one reaches the
+    image: the image held against the port's CPU float64 run, the stack of
+    the card's own windows against the CPU float64 gather of the same
+    windows, and how far the card's image moves when the time-reversed
+    launch returns zeros.
+
+    The chunk's stack is not held end to end here: the card's float32
+    tracks differ from the CPU's in a few trajectory samples (a
+    ``floor`` of a float32 Kalman state flips), which moves the start of
+    the farthest main-side row, live only with these windows, by a few
+    samples."""
+    from das_diff_veh_tpu_torch.models import vsg as V
+    from das_diff_veh_tpu_torch.pipeline.timelapse import process_chunk
+
+    cfg = _dot_cfg()
+    cfg = cfg.replace(window=dataclasses.replace(cfg.window, **LIVE_WINDOW))
+    sec32 = section.to(dtype=torch.float32)
+    captured = []
+    res, counts, first_s = _run_counted(sec32, cfg, "xcorr", captured)
+    _check_image(res, cfg, "live dot chunk")
+    live = _live_rows(captured, res.batch.valid)
+    ref = process_chunk(section, cfg, method="xcorr", device="cpu")
+    masks_eq = (res.n_windows == ref.n_windows
+                and bool(torch.equal(res.batch.valid.cpu(), ref.batch.valid))
+                and bool(torch.equal(res.tracks.valid.cpu(), ref.tracks.valid)))
+    img_err = peak_rel(res.disp_image, ref.disp_image)
+    vsg_err = peak_rel(res.vsg_stack, ref.vsg_stack)
+    tk, tc = res.tracks.t_idx.cpu().double(), ref.tracks.t_idx.double()
+    finite = torch.isfinite(tk) & torch.isfinite(tc)
+    traj_flips = [int((tk.floor() != tc.floor())[finite].sum()), int(finite.sum())]
+
+    g, _, _ = _gather_geometry(section, cfg)
+    b = res.batch
+    b64 = dataclasses.replace(b, data=b.data.cpu().double(), x=b.x.cpu(), t=b.t.cpu(),
+                              traj_x=b.traj_x.cpu(), traj_t=b.traj_t.cpu(), valid=b.valid.cpu())
+    stage = [V.stack_gathers(V.build_gather_batch(w, g, cfg.gather), w.valid) for w in (b, b64)]
+    stage_err = peak_rel(*stage)
+
+    def zero_time_reversed(launch, *args):
+        out = launch(*args)
+        return torch.zeros_like(out) if args[6] else out
+
+    with dot_launches_through(zero_time_reversed):
+        zeroed = process_chunk(sec32, cfg, method="xcorr", device="cuda")
+    moved = peak_rel(zeroed.disp_image, res.disp_image)
+    log(f"live dot chunk ({LIVE_WINDOW}): first chunk {first_s:.3f} s, launches {counts}, "
+        f"n_windows {res.n_windows} vs {ref.n_windows} on the CPU, masks equal {masks_eq}, "
+        f"[live, rows] per launch {live}, image peak-rel {img_err:.3e} (tol "
+        f"{IMAGE_PEAK_REL_TOL}); stack of the card's windows vs their CPU float64 gather "
+        f"{stage_err:.3e} (tol {IMAGE_PEAK_REL_TOL}); chunk stack end to end {vsg_err:.3e} "
+        f"(not held: {traj_flips[0]} of {traj_flips[1]} track samples floor to another "
+        f"tracking step than on the CPU); zeroing the time-reversed launch moves the image by {moved:.3e}")
+    if counts != DOT_LAUNCHES:
+        raise AssertionError(f"expected launches {DOT_LAUNCHES} in the live dot chunk, "
+                             f"got {counts}")
+    if not masks_eq:
+        raise AssertionError("live dot chunk: window or track masks differ from the CPU run")
+    if not (img_err <= IMAGE_PEAK_REL_TOL and stage_err <= IMAGE_PEAK_REL_TOL):
+        raise AssertionError(f"live dot chunk differs from the CPU float64 run: image "
+                             f"{img_err:.3e}, stack of the same windows {stage_err:.3e}")
+    if not (all(n > 0 for n, _ in live) and moved > IMAGE_PEAK_REL_TOL):
+        raise AssertionError(f"live dot chunk: the image check does not see both launches "
+                             f"(live rows {live}, image moves {moved:.3e})")
+    return {"first_chunk_s": first_s, "launches": counts, "n_windows": res.n_windows,
+            "live_rows": live, "image_peak_rel_err": img_err,
+            "same_windows_stack_peak_rel_err": stage_err, "vsg_peak_rel_err": vsg_err,
+            "trajectory_samples_differing": traj_flips,
+            "image_moves_without_time_reversed": moved}
+
+
+def phase_surface_wave_chunk(section) -> dict:
+    """``process_chunk(method="surface_wave")`` on the card against the port's
+    CPU float64 run.  The path runs none of the port's kernels."""
+    from das_diff_veh_tpu_torch.config import PipelineConfig
+    from das_diff_veh_tpu_torch.pipeline.timelapse import process_chunk
+
+    cfg = PipelineConfig()
+    sec32 = section.to(dtype=torch.float32)
+    res, counts, first_s = _run_counted(sec32, cfg, "surface_wave", [])
+    _check_image(res, cfg, "surface_wave chunk")
+    if counts != NO_LAUNCHES or res.vsg_stack is not None:
+        raise AssertionError(f"surface_wave chunk: launches {counts}")
+    t0 = time.perf_counter()
+    ref = process_chunk(section, cfg, method="surface_wave", device="cpu")
+    cpu_s = time.perf_counter() - t0
+    valid_eq = bool(torch.equal(res.batch.valid.cpu(), ref.batch.valid))
+    img_err = peak_rel(res.disp_image, ref.disp_image)
+    log(f"surface_wave chunk: first chunk {first_s:.3f} s, n_windows {res.n_windows} vs "
+        f"{ref.n_windows} on the CPU ({cpu_s:.1f} s), batch.valid equal {valid_eq}, image "
+        f"peak-rel {img_err:.3e} (tol {IMAGE_PEAK_REL_TOL})")
+    if res.n_windows != ref.n_windows or not valid_eq:
+        raise AssertionError("surface_wave chunk: windows differ from the CPU float64 run")
+    if not img_err <= IMAGE_PEAK_REL_TOL:
+        raise AssertionError(f"surface_wave image differs from the CPU float64 run by "
+                             f"{img_err:.3e}")
+    return {"first_chunk_s": first_s, "n_windows": res.n_windows, "image_peak_rel_err": img_err,
+            "cpu_float64_s": cpu_s, "sec32": sec32, "cfg": cfg}
+
+
+def _rfft_finish(rec, scal, pivot, nwin, wlen, offset, swap, precision="f32"):
+    """The port's rfft finish on B2's inputs: B1's cut, two rffts, the
+    product, the irfft, the window mean and the roll."""
+    from das_diff_veh_tpu_torch.ops import traj_gather as tg
+    from das_diff_veh_tpu_torch.ops.xcorr import _circ_corr_freq
+
+    wc, wp = tg.pack_windows_cuda(rec, scal, pivot, nwin, wlen, offset)
+    cf, pf = torch.fft.rfft(wc, dim=-1), torch.fft.rfft(wp, dim=-1)
+    c = _circ_corr_freq(pf, cf, wlen) if swap else _circ_corr_freq(cf, pf, wlen)
+    n_eff = ((torch.arange(nwin, device=rec.device) * offset + wlen) <= scal[..., 1:2]).sum(-1)
+    return torch.roll(c.sum(-2) / n_eff.clamp(min=1)[..., None], wlen // 2, dims=-1)
+
+
+def phase_dot_times(dot: dict, sw: dict, profile: bool = False) -> dict:
+    """B2 per chunk in both tiers on the dot chunks' inputs (device time from
+    CUDA-graph replays), its plain version, its bound and the rfft-finish
+    yardstick; the warm wall times of the dot and surface_wave chunks."""
+    from das_diff_veh_tpu_torch.ops import traj_gather as tg
+    from das_diff_veh_tpu_torch.pipeline.timelapse import process_chunk
+
+    entries, yard_ms, yard_gap = [], 0.0, 0.0
+    for tier, captured, launches in (("f32", dot["captured"], dot["launches"]),
+                                     ("bf16", dot["captured_bf16"], dot["launches_bf16"])):
+        k_ms = p_ms = err = 0.0
+        flops = nbytes = 0
+        for args, _ in captured:
+            rec, scal, pivot, nwin, wlen, offset, swap, precision = args
+            k, p = tg.correlate_dot_cuda(*args), tg.correlate_dot_plain(*args)
+            if not torch.equal(k, p):
+                raise AssertionError(f"B2 ({tier}) != plain version on the dot chunk's inputs")
+            err = max(err, float((k - p).abs().max()))
+            k_ms += device_ms(lambda: tg.correlate_dot_cuda(*args))
+            p_ms += device_ms(lambda: tg.correlate_dot_plain(*args), inner=2)
+            flops += tg.dot_flops(scal, nwin, wlen, offset)
+            nbytes += tg.bytes_moved(scal, rec.shape[1], rec.shape[2], pivot, nwin, wlen,
+                                     offset, out_elems=scal.shape[0] * scal.shape[1] * wlen)
+            if tier == "f32":
+                y = _rfft_finish(*args)
+                yard_gap = max(yard_gap, peak_rel(k, y))
+                yard_ms += device_ms(lambda: _rfft_finish(*args))
+        # bf16 operands with float32 sums: the card's rate for that function is
+        # the bf16 tensor cores', though B2 runs it on the CUDA cores
+        ops_rate = FP32_OPS_PER_S if tier == "f32" else BF16_OPS_PER_S
+        bound_ms, bound_by = _bound(nbytes, flops, ops_rate)
+        log(f"B2 {tier} per chunk ({len(captured)} launches, device time from CUDA graph "
+            f"replays): kernel {k_ms:.5f} ms, plain {p_ms:.4f} ms, bound {bound_ms:.6f} ms "
+            f"({bound_by}: {flops} FLOP at {ops_rate / 1e12:g} TFLOP/s, {nbytes} B at "
+            f"3.35 TB/s)")
+        entries.append({"name": "traj_dot_correlate" + ("" if tier == "f32" else "_bf16"),
+                        "route": "cuda", "source": "das_diff_veh_tpu_torch/csrc/traj_dot.cu",
+                        "replaces": "das_diff_veh_tpu/ops/pallas_gather.py:138",
+                        "launches": launches["traj_dot"], "max_abs_err": err, "ms": k_ms,
+                        "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": None, "flops": flops, "bytes": nbytes})
+    log(f"yardstick: the rfft finish (B1 cut + rfft + product + irfft + mean + roll) on the "
+        f"f32 dot chunk's B2 inputs: {yard_ms:.5f} ms per chunk, peak-rel gap to B2 "
+        f"{yard_gap:.3e}")
+    walls = {}
+    for label, sec, cfg, method in (("dot", dot["sec32"], _dot_cfg(), "xcorr"),
+                                    ("surface_wave", sw["sec32"], sw["cfg"], "surface_wave")):
+        runs = []
+        for _ in range(WARM_RUNS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            process_chunk(sec, cfg, method=method, device="cuda")
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        walls[label] = runs
+        log(f"{label} chunk wall ms over {WARM_RUNS} warm runs: {[round(w, 3) for w in runs]} "
+            f"(median {float(np.median(runs)):.3f})")
+    profiles = None
+    if profile:
+        profiles = {label: profile_call(f"one {label} chunk", lambda s=sec, c=cfg, m=method:
+                                        process_chunk(s, c, method=m, device="cuda"))
+                    for label, sec, cfg, method in (
+                        ("dot", dot["sec32"], _dot_cfg(), "xcorr"),
+                        ("surface_wave", sw["sec32"], sw["cfg"], "surface_wave"))}
+    return {"kernels": entries, "rfft_finish_ms": yard_ms, "rfft_finish_gap": yard_gap,
+            "dot_wall_ms": walls["dot"], "dot_wall_ms_median": float(np.median(walls["dot"])),
+            "surface_wave_wall_ms": walls["surface_wave"],
+            "surface_wave_wall_ms_median": float(np.median(walls["surface_wave"])),
+            "profile": profiles}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement to this JSON file")
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one warm chunk and one warm all-pairs call "
-                         "with torch.profiler")
+                    help="also profile one warm chunk of each kind and one warm "
+                         "all-pairs call with torch.profiler")
     args = ap.parse_args()
     sys.path.insert(0, str(REPO))
     results = {}
@@ -693,9 +1139,22 @@ def main() -> int:
         results["allpairs_kernels_vs_plain"] = phase_allpairs_kernels_vs_plain()
         allpairs = phase_allpairs_path(profile=args.profile)
         results["lag_domain"] = phase_lag_domain()
-        results["times"]["kernels"] += phase_allpairs_times(allpairs)
+        allpairs_kernels = phase_allpairs_times(allpairs)
         results["allpairs"] = {k: v for k, v in allpairs.items() if k != "captured"}
         del allpairs
+        torch.cuda.empty_cache()
+        results["dot_kernel_vs_plain"] = phase_dot_kernel_vs_plain()
+        dot = phase_dot_chunk(section)
+        results["dot_chunk_live"] = phase_dot_chunk_live(section)
+        sw = phase_surface_wave_chunk(section)
+        dot_times = phase_dot_times(dot, sw, profile=args.profile)
+        results["dot_chunk"] = {k: v for k, v in dot.items()
+                                if k not in ("captured", "captured_bf16", "sec32")}
+        results["surface_wave_chunk"] = {k: v for k, v in sw.items() if k not in ("sec32", "cfg")}
+        del dot, sw
+        # B1, B2 (both tiers), B3, B4
+        results["times"]["kernels"] += dot_times.pop("kernels") + allpairs_kernels
+        results["dot_times"] = dot_times
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr, flush=True)
@@ -709,6 +1168,18 @@ def main() -> int:
                               "image_peak_rel_err": results["main_path"]["image_peak_rel_err"]}}))
     log(json.dumps({"allpairs": {k: results["allpairs"][k] for k in (
         "wall_ms_median", "device_memory_peak_bytes", "f64_peak_rel_err")}}))
+    dt_ = results["dot_times"]
+    log(json.dumps({"dot_chunk": {
+        "wall_ms_median": dt_["dot_wall_ms_median"],
+        "n_windows": results["dot_chunk"]["n_windows"],
+        "image_peak_rel_err": results["dot_chunk"]["image_peak_rel_err"],
+        "dot_vs_rfft_image_gap": results["dot_chunk"]["dot_vs_rfft_image_gap"],
+        "bf16_vs_f32_image_gap": results["dot_chunk"]["bf16_vs_f32_image_gap"],
+        "live_window_image_peak_rel_err": results["dot_chunk_live"]["image_peak_rel_err"],
+        "rfft_finish_ms": dt_["rfft_finish_ms"]}}))
+    log(json.dumps({"surface_wave_chunk": {
+        "wall_ms_median": dt_["surface_wave_wall_ms_median"],
+        "image_peak_rel_err": results["surface_wave_chunk"]["image_peak_rel_err"]}}))
     log(dev["nvidia_smi"])
     log(json.dumps({"kernels": results["times"]["kernels"]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev["kind"],

@@ -122,8 +122,9 @@ class GatherConfig:
     CUDA gather kernel (``ops.traj_gather``) for a CUDA tensor and runs its
     plain version for a CPU tensor; ``"fused"`` does the same without the
     shape gate; ``"serialized"`` cuts each channel with its own slice.
-    ``traj_gather_finish="dot"`` and ``precision`` belong to the in-kernel
-    dot finish, which the port does not have yet.
+    ``traj_gather_finish="dot"`` correlates in the gather kernel
+    (``csrc/traj_dot.cu``) for ``wlen <= dot_max_wlen`` and
+    ``nwin*wlen^2 <= dot_max_matrix_elems``; ``precision`` is its tier.
     """
 
     wlen: float = 2.0                 # correlation window [s]
@@ -155,8 +156,8 @@ class DispersionConfig:
     sg_window: int = 25               # savgol smoothing along frequency
     sg_order: int = 4
     norm: bool = False                # L1 trace norm before transform
-    method: str = "fk"                # "phase_shift" is not ported yet
-    precision: str = "f32"            # "bf16" is not ported yet
+    method: str = "fk"                # or "phase_shift"
+    precision: str = "f32"            # or "bf16"
 
     def freqs(self) -> np.ndarray:
         """Scan frequencies, built on the host (a float ``torch.arange`` can

@@ -26,7 +26,7 @@ import torch
 from das_diff_veh_tpu_torch.config import DispersionConfig, GatherConfig
 from das_diff_veh_tpu_torch.core.section import WindowBatch
 from das_diff_veh_tpu_torch.ops import xcorr as xc
-from das_diff_veh_tpu_torch.ops.dispersion import fv_map_fk
+from das_diff_veh_tpu_torch.ops.dispersion import fv_map_fk, fv_map_phase_shift
 from das_diff_veh_tpu_torch.ops.interp import masked_interp
 
 
@@ -103,7 +103,9 @@ def build_gather(data: torch.Tensor, t_axis: torch.Tensor, x_axis: torch.Tensor,
     x = x_axis
     pv, sx, ex = g.pivot_idx, g.start_x_idx, g.end_x_idx
     kw = dict(overlap_ratio=cfg.overlap_ratio, mode=cfg.traj_gather,
-              finish=cfg.traj_gather_finish, max_nwin=cfg.fused_max_nwin)
+              finish=cfg.traj_gather_finish, max_nwin=cfg.fused_max_nwin,
+              dot_max_wlen=cfg.dot_max_wlen, dot_max_elems=cfg.dot_max_matrix_elems,
+              precision=cfg.precision)
     pivot_arrival = arrival(torch.full((1,), g.pivot_x, dtype=x.dtype,
                                        device=x.device))[..., 0]
 
@@ -158,13 +160,15 @@ def gather_disp_image(xcf: torch.Tensor, offsets: np.ndarray, dt: float,
                       start_x: float | None = None,
                       end_x: float | None = None) -> torch.Tensor:
     """Dispersion image of (a stack of) gathers over an offset sub-range:
-    (nvel, nfreq).  Only the ``"fk"`` method is ported."""
-    if cfg.method != "fk":
-        raise NotImplementedError(f"dispersion method {cfg.method!r} is not ported yet; "
-                                  f"use 'fk'")
+    (nvel, nfreq).  ``cfg.method``: ``"fk"`` (2-D FFT) or ``"phase_shift"``
+    (slant stack, direction -1: the gather's offsets ascend toward the
+    virtual source at 0); both honour ``cfg.precision``."""
     offsets = np.asarray(offsets)
     sxi = int(np.abs(offsets - (start_x if start_x is not None else offsets[0])).argmin())
     exi = int(np.abs(offsets - (end_x if end_x is not None else offsets[-1])).argmin())
-    return fv_map_fk(xcf[..., sxi:exi + 1, :], dx, dt, cfg.freqs(), cfg.vels(),
-                     norm=cfg.norm, sg_window=cfg.sg_window, sg_order=cfg.sg_order,
-                     precision=cfg.precision)
+    sliced = xcf[..., sxi:exi + 1, :]
+    if cfg.method == "phase_shift":
+        return fv_map_phase_shift(sliced, dx, dt, cfg.freqs(), cfg.vels(), direction=-1.0,
+                                  whiten=False, precision=cfg.precision)
+    return fv_map_fk(sliced, dx, dt, cfg.freqs(), cfg.vels(), norm=cfg.norm,
+                     sg_window=cfg.sg_window, sg_order=cfg.sg_order, precision=cfg.precision)

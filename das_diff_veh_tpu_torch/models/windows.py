@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from das_diff_veh_tpu_torch.config import WindowConfig
+from das_diff_veh_tpu_torch.config import MuteConfig, WindowConfig
 from das_diff_veh_tpu_torch.core.section import VehicleTracks, WindowBatch
 from das_diff_veh_tpu_torch.ops.filters import tukey_window
 from das_diff_veh_tpu_torch.ops.interp import masked_interp
@@ -32,22 +32,42 @@ def traj_mute_mask(x_axis: torch.Tensor, t_axis: torch.Tensor,
                    offset: float = 200.0, alpha: float = 0.3,
                    delta_x: float = 20.0,
                    double_sided: bool = False) -> torch.Tensor:
-    """(nx, nt) multiplicative mute mask following the vehicle trajectory:
-    per time sample an ``int(offset/dx)``-sample Tukey window whose center
-    tracks the interpolated car position (off-center by ``-offset/2 +
-    delta_x`` single-sided), zero outside the taper.  The reference's
-    ``argmax(x_axis > center)`` center pick is kept, including its
-    all-False -> 0 behavior."""
+    """(..., nx, nt) multiplicative mute mask following the vehicle
+    trajectory: per time sample an ``int(offset/dx)``-sample Tukey window
+    whose center tracks the interpolated car position (off-center by
+    ``-offset/2 + delta_x`` single-sided), zero outside the taper.  The
+    reference's ``argmax(x_axis > center)`` center pick is kept, including
+    its all-False -> 0 behavior.  ``t_axis`` (..., nt) and the trajectory
+    (..., n_traj) may carry leading window dimensions."""
     n_samp = int(offset / dx)
     w = tukey_window(n_samp, alpha, dtype=t_axis.dtype, device=t_axis.device)
-    car_x = masked_interp(t_axis, traj_t, traj_x, traj_valid)     # (nt,)
+    car_x = masked_interp(t_axis, traj_t, traj_x, traj_valid)     # (..., nt)
     center = car_x if double_sided else car_x - offset / 2.0 + delta_x
-    above = (x_axis[:, None] > center[None, :]).to(torch.int8)
-    center_idx = torch.argmax(above, dim=0)                       # first True, else 0
+    above = (x_axis[:, None] > center[..., None, :]).to(torch.int8)
+    center_idx = torch.argmax(above, dim=-2)                      # first True, else 0
     j = (torch.arange(x_axis.shape[0], device=x_axis.device)[:, None]
-         - (center_idx[None, :] - n_samp // 2))
+         - (center_idx[..., None, :] - n_samp // 2))
     inside = (j >= 0) & (j < n_samp)
     return torch.where(inside, w[j.clamp(0, n_samp - 1)], 0.0)
+
+
+def mute_along_traj(data: torch.Tensor, x_axis: torch.Tensor, t_axis: torch.Tensor,
+                    traj_x: torch.Tensor, traj_t: torch.Tensor,
+                    traj_valid: torch.Tensor, dx: float,
+                    cfg: MuteConfig = MuteConfig(),
+                    double_sided: bool = False) -> torch.Tensor:
+    """Apply the trajectory mute (:func:`traj_mute_mask`, cast to the data's
+    dtype)."""
+    alpha = cfg.alpha_double if double_sided else cfg.alpha
+    mask = traj_mute_mask(x_axis, t_axis, traj_x, traj_t, traj_valid, dx,
+                          offset=cfg.offset, alpha=alpha,
+                          delta_x=cfg.delta_x, double_sided=double_sided)
+    return data * mask.to(data.dtype)
+
+
+def mute_along_time(data: torch.Tensor, alpha: float = 0.3) -> torch.Tensor:
+    """Temporal Tukey mute along the last axis."""
+    return data * tukey_window(data.shape[-1], alpha, dtype=data.dtype, device=data.device)
 
 
 def window_x_bounds(x: np.ndarray, x0: float,

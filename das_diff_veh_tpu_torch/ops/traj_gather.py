@@ -1,6 +1,7 @@
-"""Trajectory-following window cut: the counterpart of
+"""Trajectory-following window cut and its two finishes: the counterpart of
 ``das_diff_veh_tpu/ops/pallas_gather.py`` (``traj_follow_windows``, whose
-Pallas body is ``_pack_kernel``).
+Pallas body is ``_pack_kernel``, and ``traj_follow_correlate_dot``, whose
+body is ``_dot_kernel``).
 
 For every window slot b and output channel ``ch_indices[k]``, cut ``nwin``
 overlapping windows of ``wlen`` samples at ``base + w*offset`` from that
@@ -8,11 +9,16 @@ channel and from the pivot channel of the same slot, zeroing every window
 that does not fit the numpy-parity slice (``ops.xcorr.window_slice_avail``).
 Valid windows are exact copies of the record.
 
-:func:`traj_follow_windows` is the wrapper: for a CUDA tensor it launches the
-hand-written kernel ``csrc/traj_gather.cu`` (all slots and channels in one
-launch) or raises; for a CPU tensor it runs :func:`pack_windows_plain`, the
-plain PyTorch version of the same function.  ``launches`` counts kernel
-launches and nothing else.
+- :func:`traj_follow_windows` returns the packed windows (the ``"rfft"``
+  finish correlates them outside).  For a CUDA tensor it launches
+  ``csrc/traj_gather.cu`` (all slots and channels in one launch) or raises;
+  for a CPU tensor it runs :func:`pack_windows_plain`.  ``launches`` counts
+  its kernel launches and nothing else.
+- :func:`traj_follow_correlate_dot` (the ``"dot"`` finish) also correlates
+  each window pair circularly, takes the mean over the valid windows and
+  rolls zero lag to ``wlen//2``.  For a CUDA tensor it launches
+  ``csrc/traj_dot.cu`` or raises; for a CPU tensor it runs
+  :func:`correlate_dot_plain`.  ``dot_launches`` counts its launches.
 """
 
 from __future__ import annotations
@@ -21,27 +27,51 @@ import ctypes
 
 import torch
 
-launches = 0
+from das_diff_veh_tpu_torch.ops.precision import bf16_round, check_precision
 
-FUSED_MAX_NWIN = 64     # default of GatherConfig.fused_max_nwin
+launches = 0        # csrc/traj_gather.cu
+dot_launches = 0    # csrc/traj_dot.cu
 
-
-def _cap(max_nwin: int | None) -> int:
-    return FUSED_MAX_NWIN if max_nwin is None else int(max_nwin)
-
-
-def fused_supported(nwin: int, max_nwin: int | None = None) -> bool:
-    """Shape gate of ``traj_gather="auto"``."""
-    return 1 <= nwin <= _cap(max_nwin)
+# defaults of GatherConfig.fused_max_nwin / dot_max_wlen / dot_max_matrix_elems
+FUSED_MAX_NWIN = 64
+DOT_MAX_WLEN = 256
+DOT_MAX_MATRIX_ELEMS = 1 << 20
 
 
-def _check_nwin(nwin: int, max_nwin: int | None) -> None:
-    cap = _cap(max_nwin)
+def _resolve_caps(max_nwin: int | None, dot_max_wlen: int | None,
+                  dot_max_elems: int | None) -> tuple[int, int, int]:
+    return (FUSED_MAX_NWIN if max_nwin is None else int(max_nwin),
+            DOT_MAX_WLEN if dot_max_wlen is None else int(dot_max_wlen),
+            DOT_MAX_MATRIX_ELEMS if dot_max_elems is None else int(dot_max_elems))
+
+
+def fused_supported(nwin: int, wlen: int, finish: str,
+                    max_nwin: int | None = None,
+                    dot_max_wlen: int | None = None,
+                    dot_max_elems: int | None = None) -> bool:
+    """Shape gate of ``traj_gather="auto"``: the window count for both
+    finishes, and jointly ``wlen`` and ``nwin*wlen^2`` for ``"dot"``."""
+    cap_nwin, cap_wlen, cap_elems = _resolve_caps(max_nwin, dot_max_wlen, dot_max_elems)
+    if nwin < 1 or nwin > cap_nwin:
+        return False
+    return not (finish == "dot" and (wlen > cap_wlen or nwin * wlen * wlen > cap_elems))
+
+
+def _check_fused(nwin: int, wlen: int, finish: str | None,
+                 max_nwin: int | None = None,
+                 dot_max_wlen: int | None = None,
+                 dot_max_elems: int | None = None) -> None:
+    cap_nwin, cap_wlen, cap_elems = _resolve_caps(max_nwin, dot_max_wlen, dot_max_elems)
     if nwin < 1:
-        raise ValueError(f"the gather needs at least one window (nwin={nwin}: nsamp < wlen?)")
-    if nwin > cap:
-        raise ValueError(f"nwin={nwin} is past fused_max_nwin={cap}; use the "
+        raise ValueError(f"fused gather needs at least one window (nwin={nwin}: "
+                         f"nsamp < wlen?)")
+    if nwin > cap_nwin:
+        raise ValueError(f"nwin={nwin} is past fused_max_nwin={cap_nwin}; use the "
                          f"serialized path (traj_gather='serialized')")
+    if finish == "dot" and (wlen > cap_wlen or nwin * wlen * wlen > cap_elems):
+        raise ValueError(f"the dot finish takes wlen <= dot_max_wlen={cap_wlen} and "
+                         f"nwin*wlen^2 <= dot_max_matrix_elems={cap_elems}, got nwin={nwin}, "
+                         f"wlen={wlen}; use the rfft finish (traj_gather_finish='rfft')")
 
 
 def traj_scalars(dt_idx: torch.Tensor, ch_indices: torch.Tensor, nch: int,
@@ -121,7 +151,7 @@ def traj_follow_windows(data: torch.Tensor, pivot_idx: int,
     windows zeroed, plus ``n_eff`` (*lead, nk) int32 valid windows each.
     One kernel launch covers every leading index and channel."""
     nwin = (nsamp - wlen) // offset + 1
-    _check_nwin(nwin, max_nwin)
+    _check_fused(nwin, wlen, None, max_nwin=max_nwin)
     lead, (nch, nt) = data.shape[:-2], data.shape[-2:]
     ch_indices = torch.as_tensor(ch_indices, device=data.device)
     nk = ch_indices.shape[0]
@@ -141,13 +171,122 @@ def traj_follow_windows(data: torch.Tensor, pivot_idx: int,
     return wins_ch.reshape(shape), wins_pv.reshape(shape), n_eff.reshape(*lead, nk)
 
 
+def correlate_dot_plain(data: torch.Tensor, scal: torch.Tensor, pivot_idx: int,
+                        nwin: int, wlen: int, offset: int, swap: bool = False,
+                        precision: str = "f32") -> torch.Tensor:
+    """Plain PyTorch version of ``csrc/traj_dot.cu``: ``data`` (B, nch, nt),
+    ``scal`` (B, nk, 3) -> (B, nk, wlen) rolled window-mean correlations.
+
+    The same operations in the same order as the kernel: the lag sum over
+    ascending ``n`` from zero, one rounding per product and per sum, then
+    the window sum over ascending ``w`` and one division.  It never builds
+    the (nwin, wlen, wlen) doubled-window matrix.  ``"bf16"`` rounds both
+    operands through bfloat16, sums in float32 and casts the window
+    correlations to the data's dtype before the window sum, as the Pallas
+    kernel does."""
+    wins_ch, wins_pv = pack_windows_plain(data, scal, pivot_idx, nwin, wlen, offset)
+    src, rcv = (wins_pv, wins_ch) if swap else (wins_ch, wins_pv)
+    if precision == "bf16":
+        src, rcv = bf16_round(src), bf16_round(rcv)
+    s2 = torch.cat([src, src], dim=-1)                          # (B, nk, nwin, 2*wlen)
+    acc = torch.zeros_like(rcv)
+    for n in range(wlen):
+        acc = acc + s2[..., n:n + wlen] * rcv[..., n:n + 1]     # c[w, lag] += s2[n+lag] r[n]
+    c = acc.to(data.dtype)
+    tot = torch.zeros_like(c[..., 0, :])
+    for w in range(nwin):
+        tot = tot + c[..., w, :]
+    starts = torch.arange(nwin, device=data.device) * offset
+    n_eff = ((starts + wlen) <= scal[..., 1:2]).sum(-1).to(c.dtype)
+    return torch.roll(tot / n_eff.clamp(min=1)[..., None], wlen // 2, dims=-1)
+
+
+def correlate_dot_cuda(data: torch.Tensor, scal: torch.Tensor, pivot_idx: int,
+                       nwin: int, wlen: int, offset: int, swap: bool = False,
+                       precision: str = "f32") -> torch.Tensor:
+    """Launch ``csrc/traj_dot.cu`` on PyTorch's current stream; same contract
+    as :func:`correlate_dot_plain` (float32 only)."""
+    global dot_launches
+    from das_diff_veh_tpu_torch import kernels
+
+    check_precision(precision)
+    if not data.is_cuda or data.dtype != torch.float32 or data.dim() != 3:
+        raise ValueError(f"traj_dot kernel takes a (B, nch, nt) float32 CUDA tensor, "
+                         f"got {tuple(data.shape)} {data.dtype} on {data.device}")
+    if not data.is_contiguous():
+        raise ValueError("traj_dot kernel needs a contiguous record")
+    nb, nch, nt = data.shape
+    if (scal.device != data.device or scal.dtype != torch.int32 or scal.dim() != 3
+            or not scal.is_contiguous() or scal.shape[0] != nb or scal.shape[-1] != 3):
+        raise ValueError(f"traj_dot scalars must be a contiguous (B, nk, 3) int32 tensor "
+                         f"on {data.device}, got {tuple(scal.shape)} {scal.dtype}")
+    nk = scal.shape[1]
+    out = torch.empty((nb, nk, wlen), dtype=torch.float32, device=data.device)
+    fn = kernels.load("traj_dot").traj_dot_correlate
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+    with torch.cuda.device(data.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(data.data_ptr(), scal.data_ptr(), out.data_ptr(), nb * nk, nk, nch, nt,
+                min(max(int(pivot_idx), 0), nch - 1), nwin, wlen, offset, int(bool(swap)),
+                int(precision == "bf16"), stream)
+    if rc != 0:
+        raise RuntimeError(f"traj_dot kernel launch failed with CUDA error {rc}")
+    dot_launches += 1
+    return out
+
+
+def traj_follow_correlate_dot(data: torch.Tensor, pivot_idx: int,
+                              ch_indices: torch.Tensor, dt_idx: torch.Tensor,
+                              nsamp: int, wlen: int, offset: int,
+                              backward: bool = False, swap: bool = False,
+                              max_nwin: int | None = None,
+                              dot_max_wlen: int | None = None,
+                              dot_max_elems: int | None = None,
+                              precision: str = "f32") -> torch.Tensor:
+    """The ``"dot"`` finish: the cut of :func:`traj_follow_windows` with each
+    window pair correlated circularly, ``c[w, lag] = sum_n s2[w, n+lag]
+    r[w, n]`` (``s2 = [s, s]``), averaged over the valid windows and rolled
+    so that zero lag sits at ``wlen//2``.  ``swap=True`` correlates (source
+    = pivot, receiver = channel).  Returns ``(*lead, nk, wlen)``; one kernel
+    launch covers every leading index and channel."""
+    nwin = (nsamp - wlen) // offset + 1
+    _check_fused(nwin, wlen, "dot", max_nwin=max_nwin, dot_max_wlen=dot_max_wlen,
+                 dot_max_elems=dot_max_elems)
+    check_precision(precision)
+    lead, (nch, nt) = data.shape[:-2], data.shape[-2:]
+    ch_indices = torch.as_tensor(ch_indices, device=data.device)
+    nk = ch_indices.shape[0]
+    if nk == 0:
+        return data.new_zeros((*lead, 0, wlen))
+    rec = data.reshape(-1, nch, nt)
+    scal = traj_scalars(dt_idx.reshape(-1, nk), ch_indices, nch, nt, nsamp, backward)
+    if data.is_cuda:
+        out = correlate_dot_cuda(rec.contiguous(), scal.contiguous(), pivot_idx, nwin,
+                                 wlen, offset, swap, precision)
+    else:
+        out = correlate_dot_plain(rec, scal, pivot_idx, nwin, wlen, offset, swap, precision)
+    return out.reshape(*lead, nk, wlen)
+
+
+def dot_flops(scal: torch.Tensor, nwin: int, wlen: int, offset: int) -> int:
+    """Operations the dot finish needs for these scalars: one multiply and
+    one add per lag and sample of each valid window."""
+    starts = torch.arange(nwin, device=scal.device) * offset
+    n_valid = int(((starts + wlen) <= scal[..., 1:2]).sum())
+    return 2 * n_valid * wlen * wlen
+
+
 def bytes_moved(scal: torch.Tensor, nch: int, nt: int, pivot_idx: int,
-                nwin: int, wlen: int, offset: int) -> int:
-    """Least bytes one cut must move for these scalars: each record sample
-    that a valid window copies, read once, plus both float32 outputs written
-    once (and the scalars read)."""
+                nwin: int, wlen: int, offset: int, out_elems: int | None = None) -> int:
+    """Least bytes one call must move for these scalars: each record sample
+    that a valid window reads, read once, plus the float32 outputs written
+    once (``out_elems`` of them; default both packed window tensors of the
+    cut) and the scalars read."""
     scal = scal.reshape(-1, scal.shape[-2], 3).cpu().long()
     nb, nk, _ = scal.shape
+    if out_elems is None:
+        out_elems = 2 * nb * nk * nwin * wlen
     need = torch.zeros((nb, nch, nt), dtype=torch.bool)
     starts = torch.arange(nwin) * offset
     for b in range(nb):
@@ -158,4 +297,4 @@ def bytes_moved(scal: torch.Tensor, nch: int, nt: int, pivot_idx: int,
                 span = slice(base, base + (n_ok - 1) * offset + wlen)
                 need[b, row, span] = True
                 need[b, min(max(pivot_idx, 0), nch - 1), span] = True
-    return 4 * (int(need.sum()) + 2 * nb * nk * nwin * wlen) + scal.numel() * 4
+    return 4 * (int(need.sum()) + out_elems) + scal.numel() * 4

@@ -119,20 +119,21 @@ def xcorr_vshot_at(data: torch.Tensor, ivs: int, start, nsamp: int, wlen: int,
     return torch.roll(out, wlen // 2, dims=-1)
 
 
-def _decide_traj_gather(mode: str | None, nwin: int, finish: str, *,
-                        max_nwin: int | None = None) -> bool:
-    """Resolve the gather-path knob to the gather kernel (True) or the
+def _decide_traj_gather(mode: str | None, nwin: int, wlen: int, finish: str, *,
+                        max_nwin: int | None = None,
+                        dot_max_wlen: int | None = None,
+                        dot_max_elems: int | None = None) -> bool:
+    """Resolve the gather-path knob to the gather kernels (True) or the
     serialized cut (False).  ``"auto"`` takes the kernel wrapper when the
-    shape is in its bounds; the wrapper launches the CUDA kernel for a CUDA
-    tensor and runs its plain version for a CPU tensor."""
-    if finish == "dot":
-        raise NotImplementedError(
-            "traj_gather_finish='dot' (the in-kernel correlation finish) is "
-            "not ported yet; use 'rfft'")
-    if finish != "rfft":
+    shape is inside the finish's caps (``tg.fused_supported``) and the
+    serialized cut, which correlates with the rfft, otherwise; the wrapper
+    launches the CUDA kernel for a CUDA tensor and runs its plain version
+    for a CPU tensor."""
+    if finish not in ("rfft", "dot"):
         raise ValueError(f"traj_gather_finish must be 'rfft' or 'dot', got {finish!r}")
     if mode in (None, "auto"):
-        return tg.fused_supported(nwin, max_nwin=max_nwin)
+        return tg.fused_supported(nwin, wlen, finish, max_nwin=max_nwin,
+                                  dot_max_wlen=dot_max_wlen, dot_max_elems=dot_max_elems)
     if mode == "serialized":
         return False
     if mode == "fused":
@@ -145,7 +146,10 @@ def xcorr_traj_follow(data: torch.Tensor, t_axis: torch.Tensor, pivot_idx: int,
                       nsamp: int, wlen: int, overlap_ratio: float = 0.5,
                       reverse: bool = False, *, mode: str | None = "auto",
                       finish: str = "rfft",
-                      max_nwin: int | None = None) -> torch.Tensor:
+                      max_nwin: int | None = None,
+                      dot_max_wlen: int | None = None,
+                      dot_max_elems: int | None = None,
+                      precision: str = "f32") -> torch.Tensor:
     """Trajectory-following pair correlations.
 
     ``data`` (*lead, nch, nt), ``t_axis`` (*lead, nt), ``ch_indices`` (nk,)
@@ -157,14 +161,24 @@ def xcorr_traj_follow(data: torch.Tensor, t_axis: torch.Tensor, pivot_idx: int,
 
     ``mode``: ``"serialized"`` cuts every pair with its own gather,
     ``"fused"``/``"auto"`` cut every channel and slot in one call of the
-    trajectory gather (``ops.traj_gather``)."""
+    trajectory gather (``ops.traj_gather``).  ``finish``: ``"rfft"``
+    correlates the cut windows with batched rffts; ``"dot"`` correlates
+    them in the gather itself (``tg.traj_follow_correlate_dot``), for
+    ``wlen <= dot_max_wlen`` and ``nwin*wlen^2 <= dot_max_elems`` only.
+    ``precision`` is the dot finish's tier (``"bf16"``: bfloat16 operands,
+    float32 sums); the rfft and serialized routes ignore it."""
     ch_indices = torch.as_tensor(ch_indices, device=data.device).long()
     # argmax of a boolean is the first True (0 when none): cast before argmax
     ge = (t_axis[..., None, :] >= t_at_ch[..., :, None]).to(torch.int8)
     dt_idx = torch.argmax(ge, dim=-1)                   # (*lead, nk)
     offset = int(wlen * (1.0 - overlap_ratio))
     nwin = (nsamp - wlen) // offset + 1
-    if _decide_traj_gather(mode, nwin, finish, max_nwin=max_nwin):
+    caps = dict(max_nwin=max_nwin, dot_max_wlen=dot_max_wlen, dot_max_elems=dot_max_elems)
+    if _decide_traj_gather(mode, nwin, wlen, finish, **caps):
+        if finish == "dot":
+            return tg.traj_follow_correlate_dot(
+                data, pivot_idx, ch_indices, dt_idx, nsamp, wlen, offset,
+                backward=reverse, swap=reverse, precision=precision, **caps)
         wins_ch, wins_pv, n_eff = tg.traj_follow_windows(
             data, pivot_idx, ch_indices, dt_idx, nsamp, wlen, offset,
             backward=reverse, max_nwin=max_nwin)

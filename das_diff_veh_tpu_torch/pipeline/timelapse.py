@@ -1,11 +1,12 @@
 """Per-chunk processing: one DAS time window -> tracked vehicles -> selected
-surface-wave windows -> stacked virtual shot gather -> dispersion image.
+surface-wave windows -> stacked dispersion image (and, for ``method=
+"xcorr"``, the stacked virtual shot gather).
 
 Mirrors the staged path of ``das_diff_veh_tpu/pipeline/timelapse.py`` for
-``method="xcorr"``.  ``process_chunk`` runs on the card unless the caller
-passes ``device="cpu"``; it turns TF32 off first (``device.resolve_device``).
-The computation follows the section's dtype: float32 on the card, float64 in
-the CPU parity tests.
+both methods.  ``process_chunk`` runs on the card unless the caller passes
+``device="cpu"``; it turns TF32 off first (``device.resolve_device``).  The
+computation follows the section's dtype: float32 on the card, float64 in the
+CPU parity tests.
 """
 
 from __future__ import annotations
@@ -22,7 +23,9 @@ from das_diff_veh_tpu_torch.core.section import (DasSection, VehicleTracks,
 from das_diff_veh_tpu_torch.device import resolve_device
 from das_diff_veh_tpu_torch.models import vsg as V
 from das_diff_veh_tpu_torch.models.tracking import track_grid, track_section
-from das_diff_veh_tpu_torch.models.windows import select_windows, window_x_slice
+from das_diff_veh_tpu_torch.models.windows import (mute_along_traj, select_windows,
+                                                   window_x_slice)
+from das_diff_veh_tpu_torch.ops.dispersion import fv_map_fk, fv_map_phase_shift
 from das_diff_veh_tpu_torch.pipeline.preprocess import (channels_to_distance,
                                                         preprocess_for_surface_waves,
                                                         preprocess_for_tracking)
@@ -33,7 +36,7 @@ class ChunkResult:
     """One processed chunk: stacked image + provenance."""
 
     disp_image: torch.Tensor          # (nvel, nfreq)
-    vsg_stack: Optional[torch.Tensor]  # (nch_out, wlen)
+    vsg_stack: Optional[torch.Tensor]  # (nch_out, wlen) for method="xcorr"
     n_windows: int                    # accepted (isolated) vehicle windows
     tracks: VehicleTracks
     batch: WindowBatch                # surface-wave-band windows
@@ -49,16 +52,46 @@ def resolve_chunk_metadata(section: DasSection, cfg: PipelineConfig,
     return x_dist, t, float(t[1] - t[0])
 
 
+def disp_image_batch(batch: WindowBatch, cfg: PipelineConfig,
+                     x: Optional[np.ndarray] = None,
+                     dt: Optional[float] = None) -> torch.Tensor:
+    """Direct per-window dispersion images with muting, all window slots at
+    once: mute each window along its vehicle's trajectory, then transform
+    the muted window over the imaging offset range ``[x0 + disp_start_x,
+    x0 + disp_end_x)``.  Returns (max_windows, nvel, nfreq).
+
+    ``x``/``dt``: host copies of the batch's window x axis and sample
+    interval (read from ``batch`` when omitted).  As in the JAX package the
+    per-window transforms run the ``"f32"`` tier whatever
+    ``cfg.dispersion.precision`` says."""
+    dcfg = cfg.dispersion
+    dx = cfg.interrogator.dx
+    x = np.asarray(batch.x.cpu() if x is None else x)
+    sxi = int(np.argmax(x >= cfg.imaging.x0 + cfg.imaging.disp_start_x))
+    nx = int((cfg.imaging.disp_end_x - cfg.imaging.disp_start_x) / dx)
+    dt = float(batch.t[0, 1] - batch.t[0, 0]) if dt is None else float(dt)
+    muted = mute_along_traj(batch.data, batch.x, batch.t, batch.traj_x, batch.traj_t,
+                            torch.isfinite(batch.traj_t), dx, cfg.mute)
+    sliced = muted[:, sxi:sxi + nx]
+    if dcfg.method == "phase_shift":
+        return fv_map_phase_shift(sliced, dx, dt, dcfg.freqs(), dcfg.vels(),
+                                  direction=-1.0, whiten=False)
+    return fv_map_fk(sliced, dx, dt, dcfg.freqs(), dcfg.vels(), norm=dcfg.norm,
+                     sg_window=dcfg.sg_window, sg_order=dcfg.sg_order)
+
+
 def chunk_body(data: torch.Tensor, x_dist: np.ndarray, t: np.ndarray,
                dt: float, cfg: PipelineConfig, method: str = "xcorr",
                with_qs: bool = False):
-    """Preprocess both bands -> track -> select windows -> stacked gather and
-    its dispersion image.  ``x_dist``/``t`` are host numpy; every slice bound
-    resolves from them.  Returns ``(img, vsg_stack, n_windows, tracks, batch,
-    qs_batch)`` with ``n_windows`` a device scalar."""
-    if method != "xcorr":
-        raise NotImplementedError(f"method={method!r} is not ported yet; use 'xcorr'")
-    d_sw = preprocess_for_surface_waves(data, dt, cfg.sw_preprocess, normalize=False)
+    """Preprocess both bands -> track -> select windows -> the method's
+    stacked image: ``"xcorr"`` stacks the virtual shot gathers and images
+    the stack, ``"surface_wave"`` images each muted window and stacks the
+    images.  ``x_dist``/``t`` are host numpy; every slice bound resolves from
+    them.  Returns ``(img, vsg_stack, n_windows, tracks, batch, qs_batch)``
+    with ``n_windows`` a device scalar and ``vsg_stack`` None for
+    ``"surface_wave"``."""
+    d_sw = preprocess_for_surface_waves(data, dt, cfg.sw_preprocess,
+                                        normalize=(method == "surface_wave"))
     d_track, x_track, t_stride = preprocess_for_tracking(
         data, x_dist, dt, cfg.tracking_preprocess, dx=cfg.interrogator.dx)
     t_track = t[::t_stride]
@@ -77,6 +110,9 @@ def chunk_body(data: torch.Tensor, x_dist: np.ndarray, t: np.ndarray,
 
     n_windows = batch.valid.sum()
     x_win = window_x_slice(x_dist, cfg.imaging.x0, cfg.window)
+    if method == "surface_wave":
+        img = V.stack_gathers(disp_image_batch(batch, cfg, x=x_win, dt=dt), batch.valid)
+        return img, None, n_windows, tracks, batch, qs_batch
     g = V.VsgGeometry.build(x_win, dt, cfg.imaging.x0,
                             cfg.imaging.x0 + cfg.imaging.disp_start_x,
                             cfg.imaging.x0 + cfg.gather.far_offset, cfg.gather)
@@ -96,13 +132,13 @@ def process_chunk(section: DasSection, cfg: Optional[PipelineConfig] = None,
     dispersion image.  ``section.data`` is moved to ``device`` and keeps its
     dtype.
 
-    Not ported yet, and raising ``NotImplementedError``: ``method=
-    "surface_wave"``, ``cfg.chunk_pipeline="fused"`` and
+    ``method``: ``"xcorr"`` (virtual shot gathers -> dispersion image of
+    the stack) or ``"surface_wave"`` (muted direct dispersion image per
+    window, averaged over the valid windows).  Not ported yet, and raising
+    ``NotImplementedError``: ``cfg.chunk_pipeline="fused"`` and
     ``cfg.health.enabled``."""
     if method not in {"xcorr", "surface_wave"}:
         raise ValueError(f"method must be 'xcorr' or 'surface_wave', got {method!r}")
-    if method == "surface_wave":
-        raise NotImplementedError("method='surface_wave' is not ported yet")
     cfg = cfg if cfg is not None else PipelineConfig()
     if cfg.chunk_pipeline != "staged":
         raise NotImplementedError(f"chunk_pipeline={cfg.chunk_pipeline!r} is not "

@@ -103,6 +103,94 @@ def test_small_chunk_on_card_matches_cpu(card):
     assert float(err / want.disp_image.abs().max()) <= 1e-3
 
 
+# ---- the dot finish: B2 (traj_dot.cu) ----
+
+# (wlen, nsamp): the dot chunk's 250 samples (nwin 6), a whole-warp 256 at
+# nwin 16 (nwin*wlen^2 = 2^20, the cap), 64, and 33 (off the warp width)
+DOT_SHAPES = {"w250": (250, 999), "w256_nwin16": (256, 15 * 128 + 256),
+              "w64": (64, 300), "w33_nwin1": (33, 40)}
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", sorted(DOT_SHAPES))
+def test_traj_dot_kernel_equals_plain(card, shape, precision):
+    """Every product and sum rounded where the plain version rounds it, in
+    the same order: equal bit for bit in both tiers, forward and swapped,
+    with rows truncated at the record end and backward empty slices."""
+    wlen, nsamp = DOT_SHAPES[shape]
+    offset = wlen // 2
+    nwin = (nsamp - wlen) // offset + 1
+    gen = torch.Generator(device=card).manual_seed(13)
+    nb, nch, nt = 8, 12, 3000
+    rec = torch.randn((nb, nch, nt), generator=gen, device=card)
+    ch = torch.arange(1, 11, device=card)
+    for backward, swap in ((False, False), (True, True), (False, True)):
+        idx = torch.randint(0, nt + 300, (nb, ch.numel()), generator=gen, device=card)
+        scal = tg.traj_scalars(idx, ch, nch, nt, nsamp, backward).contiguous()
+        before = tg.dot_launches
+        k = tg.correlate_dot_cuda(rec, scal, 5, nwin, wlen, offset, swap, precision)
+        p = tg.correlate_dot_plain(rec, scal, 5, nwin, wlen, offset, swap, precision)
+        torch.cuda.synchronize()
+        assert tg.dot_launches == before + 1
+        assert k.shape == (nb, ch.numel(), wlen)
+        assert torch.equal(k, p), (backward, swap)
+        empty = scal[..., 1] < wlen
+        assert not k[empty].any()
+
+
+def test_traj_dot_one_launch_for_all_slots_and_rejects(card):
+    rec = torch.randn((64, 37, 2000), device=card)
+    before = tg.dot_launches
+    out = tg.traj_follow_correlate_dot(rec, 28, torch.arange(10, 28, device=card),
+                                       torch.randint(0, 2000, (64, 18), device=card),
+                                       999, 250, 125, backward=True, swap=True)
+    assert tg.dot_launches == before + 1 and out.shape == (64, 18, 250)
+    scal = torch.zeros((1, 1, 3), dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="float32"):
+        tg.correlate_dot_cuda(rec[:1].double(), scal, 5, 6, 250, 125)
+    with pytest.raises(ValueError, match="int32"):
+        tg.correlate_dot_cuda(rec[:1].contiguous(), scal.long(), 5, 6, 250, 125)
+    with pytest.raises(ValueError, match="precision"):
+        tg.correlate_dot_cuda(rec[:1].contiguous(), scal, 5, 6, 250, 125, precision="fp8")
+
+
+def test_small_dot_chunk_on_card_matches_cpu(card, monkeypatch):
+    """16 s windows at the default 8 s isolation spacing, so that the
+    time-reversed rows near the pivot are live (with the default 8 s window
+    every one is a backward empty slice) and the image and the stack see
+    both of B2's launches."""
+    import dataclasses
+
+    from das_diff_veh_tpu_torch.config import ImagingConfig, PipelineConfig
+    from das_diff_veh_tpu_torch.io.synthetic import SceneConfig, synthesize_section
+    from das_diff_veh_tpu_torch.pipeline.timelapse import process_chunk
+
+    sec, _ = synthesize_section(SceneConfig(nch=100, duration=120.0, n_vehicles=4,
+                                            seed=11, speed_range=(12.0, 18.0)))
+    cfg = PipelineConfig().replace(imaging=ImagingConfig(x0=400.0))
+    cfg = cfg.replace(gather=dataclasses.replace(cfg.gather, wlen=1.0, traj_gather_finish="dot"),
+                      window=dataclasses.replace(cfg.window, wlen_sw=16.0, temporal_spacing=8.0))
+    outs, launch = [], tg.correlate_dot_cuda
+
+    def recording(*args):
+        outs.append(launch(*args))
+        return outs[-1]
+
+    monkeypatch.setattr(tg, "correlate_dot_cuda", recording)
+    tg.launches = tg.dot_launches = 0
+    got = process_chunk(sec.to(dtype=torch.float32), cfg, device=card)
+    assert (tg.launches, tg.dot_launches) == (0, 2)
+    want = process_chunk(sec, cfg, device="cpu")
+    assert got.n_windows == want.n_windows > 0
+    assert torch.equal(got.batch.valid.cpu(), want.batch.valid)
+    for name in ("disp_image", "vsg_stack"):
+        a, b = getattr(got, name).double().cpu(), getattr(want, name)
+        assert float((a - b).abs().max() / b.abs().max()) <= 1e-3, name
+    # both launches (main side, then time-reversed) have live rows in valid slots
+    assert [o.shape[0] for o in outs] == [64, 64]
+    assert all(bool(o[got.batch.valid].abs().amax(-1).gt(0).any()) for o in outs)
+
+
 # ---- the all-pairs kernels: B3 (cross_spectra.cu) and B4 (lag_absmax.cu) ----
 
 # (m, nall, nwin, nf, win_block): one source row; receivers off the 16-row

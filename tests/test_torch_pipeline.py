@@ -73,6 +73,13 @@ def test_port_runs_a_chunk_without_loading_jax():
         cfg = PipelineConfig().replace(imaging=ImagingConfig(x0=250.0))
         r = process_chunk(sec, cfg, device="cpu")
         assert bool(torch.isfinite(r.disp_image).all()), "non-finite image"
+        from das_diff_veh_tpu_torch.ops import traj_gather as tg
+        from das_diff_veh_tpu_torch.ops.xcorr import xcorr_traj_follow
+        dot = xcorr_traj_follow(sec.data[:, :2000], sec.t[:2000], 6, torch.tensor([2, 3]),
+                                torch.tensor([1.0, 2.0], dtype=torch.float64), 800, 250,
+                                mode="fused", finish="dot", precision="bf16")
+        assert dot.shape == (2, 250) and bool(dot.abs().sum() > 0), "empty dot finish"
+        assert tg.dot_launches == 0
         from das_diff_veh_tpu_torch.ops.all_pairs import xcorr_all_pairs_peak
         from das_diff_veh_tpu_torch.workloads import make_ambient_record
         peak = xcorr_all_pairs_peak(make_ambient_record(12, 300, device="cpu"), 64,
@@ -102,10 +109,12 @@ def test_entry_points_need_a_card_unless_cpu_is_asked_for():
 
 
 def test_unported_options_raise():
+    """The fused chunk and the health sentinel are still to port; an unknown
+    method is refused."""
     x, t = np.arange(4) * 8.16, np.arange(8) * 0.004
     sec = section_from_numpy(np.zeros((4, 8)), x, t, device="cpu")
-    with pytest.raises(NotImplementedError, match="surface_wave"):
-        process_chunk(sec, method="surface_wave", device="cpu")
+    with pytest.raises(ValueError, match="surface_wave"):
+        process_chunk(sec, method="rayleigh", device="cpu")
     with pytest.raises(NotImplementedError, match="chunk_pipeline"):
         process_chunk(sec, PipelineConfig(chunk_pipeline="fused"), device="cpu")
     cfg = PipelineConfig()

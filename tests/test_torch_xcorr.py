@@ -81,10 +81,15 @@ def test_sliding_windows_and_cut_match_jax():
 
 
 def test_unported_and_invalid_knobs():
+    """Every knob value is ported now: what stays refused is a dot finish
+    past its caps (the JAX texts) and names that are not knob values."""
     args = (torch.zeros((NCH, NT)), torch.from_numpy(T_AXIS), PIVOT, torch.from_numpy(CH),
             torch.ones(4, dtype=torch.float64), NSAMP, WLEN)
-    with pytest.raises(NotImplementedError, match="dot"):
-        px.xcorr_traj_follow(*args, mode="fused", finish="dot")
+    big = 258                                           # past dot_max_wlen=256
+    with pytest.raises(ValueError, match="dot_max_wlen"):
+        px.xcorr_traj_follow(*args[:5], 4 * big, big, mode="fused", finish="dot")
+    with pytest.raises(ValueError, match="precision"):
+        px.xcorr_traj_follow(*args, mode="fused", finish="dot", precision="f16")
     with pytest.raises(ValueError, match="traj_gather_finish"):
         px.xcorr_traj_follow(*args, finish="fft2")
     with pytest.raises(ValueError, match="traj_gather"):
