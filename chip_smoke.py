@@ -20,15 +20,20 @@ Phases, each of which must pass:
    time and its bound, on the inputs the main path gave it;
 6. with ``--profile``: device time by kernel over one warm chunk (and, in
    phase 8, over one warm all-pairs call);
-7. all-pairs kernels vs plain: the cross-spectra kernel (B3) and the lag-axis
-   peak kernel (B4) against their plain versions on the card at edge shapes;
+7. all-pairs kernels vs plain: the cross-spectra kernel (B3) in both tiers
+   (complex64, and bf16 pairs) and the lag-axis peak kernel (B4) against
+   their plain versions on the card at edge shapes;
 8. all-pairs path: ``xcorr_all_pairs_peak`` at BASELINE config 4 (10000
    channels x 4096 samples at 1 kHz, wlen 1024, float32) on the card, with
    its launch counts, held against the card's plain path and a float64
-   NumPy computation; then ``xcorr_all_pairs`` in the lag domain at 4096 x
-   4096 channels with 129 lags, held against its plain path;
-9. all-pairs times: B3 and B4 on the inputs the path gave them, beside their
-   bounds, their plain versions and one PyTorch call computing the same;
+   NumPy computation; again with ``precision="bf16"``, held against the
+   card's bf16 plain path and the f32 peaks; B3's per-pair invariance in
+   both tiers; then ``xcorr_all_pairs`` in the lag domain at 4096 x 4096
+   channels with 129 lags, held against its plain path;
+9. all-pairs times: B3 in both tiers and B4 on the inputs the path gave
+   them, beside their bounds, their plain versions and one PyTorch call
+   computing the same; B3 at the long-record entry's shapes (2048 channels
+   x 61440 samples, 119 windows in slabs of 32);
 10. dot kernel vs plain: the dot finish (B2) against its plain version on the
    card in both precision tiers, forward and swapped, at edge shapes (wlen
    250, 256, 64 and 33; one window, and 16 at wlen 256, the joint cap; 64
@@ -101,6 +106,24 @@ HOST_F64_ROWS = (0, 1, 2, 4999, 5000, 9997, 9998, 9999)
 # for the port's CPU float32 run at 400 channels).  1e-5 leaves a factor 100
 # for cuFFT's other rounding; the ceiling set for this check is 1e-4.
 ALLPAIRS_PEAK_REL_TOL = 1e-5
+# The bf16 peaks against the f32 ones: tests/test_precision.py's ring budget.
+RING_BF16_BUDGET = 1e-2
+# (m, nall, nwin, nf, win_block or None for the entry's default) of the B3
+# edge cases, both tiers: one, 63 and 64 source rows (the resident group is
+# 64); fewer receivers than one 16-row tile and 10000 - 7; 513 frequencies
+# (16 segments of 32 and a one-frequency tail), 33 and 1 (a tail alone); a
+# ragged slab (7 = 3 + 3 + 1); and the automatic 32-window slabs past 48
+# windows, where the windows stream through the ring 7 at a time.
+B3_CASES = {"m1_ragged_slab": (1, 10000 - 7, 7, 513, 3),
+            "m63_one_slab": (63, 1001, 7, 513, None),
+            "m64_nall9993": (64, 10000 - 7, 7, 513, None),
+            "nall_below_tile_nf33": (64, 5, 7, 33, None),
+            "nf1": (7, 300, 7, 1, None),
+            "auto_slabs_nwin50": (9, 50, 50, 33, None),
+            "auto_slabs_nwin119": (64, 200, 119, 513, None)}
+# bench.py's long-record entry: 2048 channels x 61440 samples at wlen 1024
+# (119 windows, slabs of 32, 32, 32 and 23), one launch of 64 source rows
+LONG_RECORD = dict(nch=2048, nt=61440, seed=3, wlen=1024, m=64)
 SLEEP_CYCLES = 20_000_000          # device sleep ahead of each timed group (event_ms)
 CHUNK_LAUNCHES = {"traj_gather": 2, "traj_dot": 0, "cross_spectra": 0, "lag_absmax": 0}
 # The dot chunk: GatherConfig(wlen=1.0, traj_gather_finish="dot") at 250 Hz gives
@@ -472,36 +495,35 @@ def phase_profile(main: dict) -> dict:
 
 
 def phase_allpairs_kernels_vs_plain() -> dict:
-    """B3 and B4 against their plain versions on the card at edge shapes.
-    Both must be equal bit for bit: B3 rounds every product and sum where its
-    plain version does, in the same order (no FMA contraction), and B4's max
-    is a selection."""
+    """B3 in both tiers and B4 against their plain versions on the card at
+    edge shapes (``B3_CASES``).  Both must be equal bit for bit: B3 rounds
+    every product and sum where its plain version does, in the same order
+    (no FMA contraction), and B4's max is a selection."""
     from das_diff_veh_tpu_torch.ops import all_pairs as ap
     from das_diff_veh_tpu_torch.ops import cross_spectra as cs
     from das_diff_veh_tpu_torch.ops import lag_absmax as la
 
     gen = torch.Generator(device="cuda").manual_seed(11)
     out = {}
-    # (m, nall, nwin, nf, win_block): one source row; receivers off the
-    # 16-row tile; 513 frequencies (off the 32-lane block); a ragged slab
-    # (7 = 3 + 3 + 1); one slab; and the automatic 32-window slabs past 48
-    b3_cases = {"m1_ragged_slab": (1, 10000 - 7, 7, 513, 3),
-                "ragged_tiles_one_slab": (64, 1001, 7, 513, None),
-                "auto_slabs": (9, 50, 50, 33, None)}
-    for name, (m, nall, nwin, nf, wb) in b3_cases.items():
+    for name, (m, nall, nwin, nf, wb) in B3_CASES.items():
         wb = ap._resolve_win_block(nwin, wb)
         src = torch.randn((m, nwin, nf), generator=gen, device="cuda", dtype=torch.complex64)
         rcv = torch.randn((nall, nwin, nf), generator=gen, device="cuda",
                           dtype=torch.complex64)
-        k = cs.cross_spectra_cuda(src, rcv, nwin, wb)
-        p = cs.cross_spectra_plain(src, rcv, nwin, wb)
-        torch.cuda.synchronize()
-        err = float((k - p).abs().max())
-        log(f"B3 vs plain [{name}: m={m} nall={nall} nwin={nwin} nf={nf} win_block={wb}]: "
-            f"equal={torch.equal(k, p)} max_abs_err={err}")
-        if not torch.equal(k, p):
-            raise AssertionError(f"cross_spectra kernel != plain version in case {name}")
-        out[f"cross_spectra/{name}"] = {"equal": True, "max_abs_err": err}
+        for tier, (s, r) in (("f32", (src, rcv)),
+                             ("bf16", (cs.to_bf16_pairs(src), cs.to_bf16_pairs(rcv)))):
+            k = cs.cross_spectra_cuda(s, r, nwin, wb)
+            p = cs.cross_spectra_plain(s, r, nwin, wb)
+            torch.cuda.synchronize()
+            equal = bool(torch.equal(k, p))
+            err = float((k - p).abs().max())
+            log(f"B3 {tier} vs plain [{name}: m={m} nall={nall} nwin={nwin} nf={nf} "
+                f"win_block={wb}]: equal={equal} max_abs_err={err}")
+            if not equal:
+                raise AssertionError(f"cross_spectra kernel ({tier}) != plain version in "
+                                     f"case {name}")
+            out[f"cross_spectra_{tier}/{name}"] = {"equal": True, "max_abs_err": err}
+            del k, p
     for nlag in (1024, 1023, 5):
         lag = torch.randn((4099, nlag), generator=gen, device="cuda")
         lag[3, nlag // 2] = float("nan")
@@ -532,68 +554,30 @@ def _host_peak_f64(record: np.ndarray, rows, wlen: int) -> np.ndarray:
     return out
 
 
-def phase_allpairs_path(profile: bool = False) -> dict:
-    """``xcorr_all_pairs_peak`` at config 4 on the card: launch counts, the
-    card's plain path on the first and the ragged last source chunk, float64
-    NumPy on 8 source rows, B3's per-pair invariance, the warm wall time and,
-    with ``profile``, device time by kernel over one warm call."""
-    from das_diff_veh_tpu_torch.ops import all_pairs as ap
+def _b3_pair_invariant(wf: torch.Tensor, precision: str) -> bool:
+    """One pair's B3 bits do not depend on the launch's source rows (64 vs
+    16) or its receiver set (all vs a slice)."""
     from das_diff_veh_tpu_torch.ops import cross_spectra as cs
-    from das_diff_veh_tpu_torch.workloads import make_ambient_record
 
-    nch, wlen = ALLPAIRS["nch"], ALLPAIRS["wlen"]
-    rec = make_ambient_record(nch, ALLPAIRS["nt"], seed=ALLPAIRS["seed"])
-    captured = {}
-    with first_inputs(captured):
-        torch.cuda.synchronize()
-        reset_counts()
-        t0 = time.perf_counter()
-        peak = ap.xcorr_all_pairs_peak(rec, wlen)
-        torch.cuda.synchronize()
-        first_s = time.perf_counter() - t0
-        counts = read_counts()
-    log(f"all-pairs path: xcorr_all_pairs_peak {tuple(rec.shape)} wlen={wlen} first call "
-        f"{first_s:.3f} s, launches {counts}")
-    if counts != ALLPAIRS_LAUNCHES:
-        raise AssertionError(f"expected launches {ALLPAIRS_LAUNCHES}, got {counts}")
-    if not (peak.is_cuda and peak.dtype == torch.float32 and tuple(peak.shape) == (nch, nch)
-            and bool(torch.isfinite(peak).all())):
-        raise AssertionError("the peaks must be a finite (nch, nch) float32 tensor on the card")
-
-    wf = ap._window_spectra(rec, wlen, 0.5)
-    plain_equal = {}
-    chunk = 64                                   # the entry's default src_chunk
-    last = slice((nch - 1) // chunk * chunk, nch)  # 16 rows at config 4
-    for label, rows in (("first_chunk", slice(0, chunk)), ("ragged_last_chunk", last)):
-        with plain_kernels():
-            ref = ap.peak_from_spectra(wf[rows], wf, wlen, chunk, True)
-        plain_equal[label] = bool(torch.equal(peak[rows], ref))
-    log(f"vs the card's plain path (kernels' plain versions, same shapes): {plain_equal}")
-    if not all(plain_equal.values()):
-        raise AssertionError(f"all-pairs peaks differ from the card's plain path: {plain_equal}")
-
-    t0 = time.perf_counter()
-    host = _host_peak_f64(rec.cpu().numpy(), HOST_F64_ROWS, wlen)
-    got = peak[list(HOST_F64_ROWS)].double().cpu().numpy()
-    f64_err = float(np.abs(got - host).max() / np.abs(host).max())
-    f64_elem = float((np.abs(got - host) / host).max())
-    log(f"vs float64 NumPy ({len(HOST_F64_ROWS)} source rows x {nch}, "
-        f"{time.perf_counter() - t0:.1f} s): peak-rel {f64_err:.3e} "
-        f"(tol {ALLPAIRS_PEAK_REL_TOL}), largest pair-relative {f64_elem:.3e}")
-    if not f64_err <= ALLPAIRS_PEAK_REL_TOL:
-        raise AssertionError(f"peaks differ from float64 NumPy by {f64_err:.3e}")
-
-    nwin = wf.shape[1]
+    nch, nwin = wf.shape[0], wf.shape[1]
+    prep = cs.to_bf16_pairs if precision == "bf16" else (lambda x: x.contiguous())
+    rcv = prep(wf)
     sub = slice(nch // 10, 3 * nch // 10 + 1)
-    k64 = cs.cross_spectra_cuda(wf[:64], wf, nwin, nwin)
-    k16 = cs.cross_spectra_cuda(wf[:16], wf, nwin, nwin)
-    ksub = cs.cross_spectra_cuda(wf[:16], wf[sub].contiguous(), nwin, nwin)
+    k64 = cs.cross_spectra_cuda(prep(wf[:64]), rcv, nwin, nwin)
+    k16 = cs.cross_spectra_cuda(prep(wf[:16]), rcv, nwin, nwin)
+    ksub = cs.cross_spectra_cuda(prep(wf[:16]), prep(wf[sub]), nwin, nwin)
     invariant = bool(torch.equal(k64[:16], k16) and torch.equal(k16[:, sub], ksub))
-    log(f"B3 per-pair invariance (64 vs 16 source rows, receivers {sub.start}:{sub.stop}): "
-        f"{invariant}")
+    log(f"B3 {precision} per-pair invariance (64 vs 16 source rows, receivers "
+        f"{sub.start}:{sub.stop}): {invariant}")
     if not invariant:
-        raise AssertionError("B3's result for a pair depends on the launch's shape")
-    del k64, k16, ksub, wf, ref, peak
+        raise AssertionError(f"B3's {precision} result for a pair depends on the launch's "
+                             f"shape")
+    return invariant
+
+
+def _allpairs_walls(rec: torch.Tensor, wlen: int, precision: str) -> dict:
+    """Median wall time of 3 warm calls and the device memory peak."""
+    from das_diff_veh_tpu_torch.ops import all_pairs as ap
 
     walls = []
     torch.cuda.synchronize()
@@ -602,20 +586,93 @@ def phase_allpairs_path(profile: bool = False) -> dict:
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        ap.xcorr_all_pairs_peak(rec, wlen)
+        ap.xcorr_all_pairs_peak(rec, wlen, precision=precision)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     peak_bytes = torch.cuda.max_memory_allocated()
-    log(f"all-pairs wall ms over 3 warm calls: {[round(w, 3) for w in walls]} (median "
-        f"{float(np.median(walls)):.3f}), device memory peak {peak_bytes} B "
+    log(f"all-pairs {precision} wall ms over 3 warm calls: {[round(w, 3) for w in walls]} "
+        f"(median {float(np.median(walls)):.3f}), device memory peak {peak_bytes} B "
         f"({held_bytes} B held before the calls)")
-    prof = profile_call("xcorr_all_pairs_peak at config 4",
-                        lambda: ap.xcorr_all_pairs_peak(rec, wlen)) if profile else None
-    return {"first_call_s": first_s, "launches": counts, "plain_path_equal": plain_equal,
-            "f64_peak_rel_err": f64_err, "f64_largest_pair_rel_err": f64_elem,
-            "b3_pair_invariant": invariant, "wall_ms": walls,
-            "wall_ms_median": float(np.median(walls)), "device_memory_peak_bytes": peak_bytes,
-            "device_memory_held_bytes": held_bytes, "profile": prof, "captured": captured}
+    return {"wall_ms": walls, "wall_ms_median": float(np.median(walls)),
+            "device_memory_peak_bytes": peak_bytes, "device_memory_held_bytes": held_bytes}
+
+
+def phase_allpairs_path(profile: bool = False) -> dict:
+    """``xcorr_all_pairs_peak`` at config 4 on the card, f32 then bf16: launch
+    counts, the card's plain path on the first and the ragged last source
+    chunk, float64 NumPy on 8 source rows (f32), the f32 peaks (bf16), B3's
+    per-pair invariance, the warm wall time and, with ``profile``, device
+    time by kernel over one warm f32 call."""
+    from das_diff_veh_tpu_torch.ops import all_pairs as ap
+    from das_diff_veh_tpu_torch.workloads import make_ambient_record
+
+    nch, wlen = ALLPAIRS["nch"], ALLPAIRS["wlen"]
+    rec = make_ambient_record(nch, ALLPAIRS["nt"], seed=ALLPAIRS["seed"])
+    wf = ap._window_spectra(rec, wlen, 0.5)
+    chunk = 64                                   # the entry's default src_chunk
+    last = slice((nch - 1) // chunk * chunk, nch)  # 16 rows at config 4
+    out = {"captured": {}}
+    peaks = {}
+    for tier in ("f32", "bf16"):
+        captured = {}
+        with first_inputs(captured):
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            peak = ap.xcorr_all_pairs_peak(rec, wlen, precision=tier)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            counts = read_counts()
+        log(f"all-pairs path ({tier}): xcorr_all_pairs_peak {tuple(rec.shape)} wlen={wlen} "
+            f"first call {first_s:.3f} s, launches {counts}")
+        if counts != ALLPAIRS_LAUNCHES:
+            raise AssertionError(f"expected launches {ALLPAIRS_LAUNCHES}, got {counts}")
+        if not (peak.is_cuda and peak.dtype == torch.float32
+                and tuple(peak.shape) == (nch, nch) and bool(torch.isfinite(peak).all())):
+            raise AssertionError("the peaks must be a finite (nch, nch) float32 tensor on "
+                                 "the card")
+        plain_equal = {}
+        for label, rows in (("first_chunk", slice(0, chunk)), ("ragged_last_chunk", last)):
+            with plain_kernels():
+                ref = ap.peak_from_spectra(wf[rows], wf, wlen, chunk, True, precision=tier)
+            plain_equal[label] = bool(torch.equal(peak[rows], ref))
+        log(f"{tier} vs the card's plain path (kernels' plain versions, same shapes): "
+            f"{plain_equal}")
+        if not all(plain_equal.values()):
+            raise AssertionError(f"{tier} all-pairs peaks differ from the card's plain path: "
+                                 f"{plain_equal}")
+        res = {"first_call_s": first_s, "launches": counts, "plain_path_equal": plain_equal}
+        if tier == "f32":
+            t0 = time.perf_counter()
+            host = _host_peak_f64(rec.cpu().numpy(), HOST_F64_ROWS, wlen)
+            got = peak[list(HOST_F64_ROWS)].double().cpu().numpy()
+            f64_err = float(np.abs(got - host).max() / np.abs(host).max())
+            f64_elem = float((np.abs(got - host) / host).max())
+            log(f"vs float64 NumPy ({len(HOST_F64_ROWS)} source rows x {nch}, "
+                f"{time.perf_counter() - t0:.1f} s): peak-rel {f64_err:.3e} "
+                f"(tol {ALLPAIRS_PEAK_REL_TOL}), largest pair-relative {f64_elem:.3e}")
+            if not f64_err <= ALLPAIRS_PEAK_REL_TOL:
+                raise AssertionError(f"peaks differ from float64 NumPy by {f64_err:.3e}")
+            res.update(f64_peak_rel_err=f64_err, f64_largest_pair_rel_err=f64_elem)
+        else:
+            gap = peak_rel(peak, peaks["f32"])
+            changed = not bool(torch.equal(peak, peaks["f32"]))
+            log(f"bf16 peaks vs f32 peaks: peak-rel {gap:.3e} (budget {RING_BF16_BUDGET}), "
+                f"bits changed {changed}")
+            if not (changed and gap < RING_BF16_BUDGET):
+                raise AssertionError(f"bf16 peaks vs f32: gap {gap:.3e}, changed {changed}")
+            res.update(bf16_vs_f32_peak_rel=gap)
+        res["b3_pair_invariant"] = _b3_pair_invariant(wf, tier)
+        peaks[tier] = peak
+        out[tier] = res
+        out["captured"][tier] = captured
+        del ref
+    del wf, peaks, peak
+    for tier in ("f32", "bf16"):
+        out[tier].update(_allpairs_walls(rec, wlen, tier))
+    out["profile"] = profile_call("xcorr_all_pairs_peak at config 4",
+                                  lambda: ap.xcorr_all_pairs_peak(rec, wlen)) if profile else None
+    return out
 
 
 def phase_lag_domain() -> dict:
@@ -665,27 +722,78 @@ def _bound(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S) -> tupl
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_allpairs_times(path: dict) -> list:
-    """B3 and B4 on the inputs of their first launch on the config-4 path
-    (single launches between CUDA events; each output is ~2.6 GB for B3, too
-    large for a CUDA graph of many calls), beside their bounds, their plain
-    versions and one PyTorch call computing the same function."""
+def _b3_times(src, rcv, nwin: int, wb: int, precision: str, reps: int = 5) -> dict:
+    """B3 on one launch's inputs: held against its plain version, then the
+    kernel, the plain version and the einsum (on the spectra the tier's
+    kernel sees, widened to complex64 beforehand) timed between CUDA events,
+    beside the tier's bound."""
     from das_diff_veh_tpu_torch.ops import cross_spectra as cs
-    from das_diff_veh_tpu_torch.ops import lag_absmax as la
 
-    src, rcv, nwin, wb = path["captured"]["cross_spectra"]
-    (lag,) = path["captured"]["lag_absmax"]
     m, nall, nf = src.shape[0], rcv.shape[0], src.shape[2]
     k, p = cs.cross_spectra_cuda(src, rcv, nwin, wb), cs.cross_spectra_plain(src, rcv, nwin, wb)
-    b3_err = float((k - p).abs().max())
+    err = float((k - p).abs().max())
     if not torch.equal(k, p):
-        raise AssertionError("B3 != plain version on the path's inputs")
+        raise AssertionError(f"B3 ({precision}) != plain version on m={m} nall={nall} "
+                             f"nwin={nwin} nf={nf}")
     del k, p
-    b3 = {"ms": event_ms(lambda: cs.cross_spectra_cuda(src, rcv, nwin, wb), reps=5),
-          "plain_ms": event_ms(lambda: cs.cross_spectra_plain(src, rcv, nwin, wb), reps=2),
-          "library_ms": event_ms(lambda: torch.einsum("swf,rwf->srf", src, rcv.conj()) / nwin,
-                                 reps=5)}
-    b3_bound, b3_by = _bound(cs.bytes_moved(m, nall, nwin, nf), cs.flops(m, nall, nwin, nf))
+    if precision == "bf16":
+        s_c, r_c = (torch.view_as_complex(x.float()) for x in (src, rcv))
+    else:
+        s_c, r_c = src, rcv
+    t = {"ms": event_ms(lambda: cs.cross_spectra_cuda(src, rcv, nwin, wb), reps=reps),
+         "plain_ms": event_ms(lambda: cs.cross_spectra_plain(src, rcv, nwin, wb), reps=2),
+         "library_ms": event_ms(lambda: torch.einsum("swf,rwf->srf", s_c, r_c.conj()) / nwin,
+                                reps=reps)}
+    # bf16 operands with float32 sums: the card's rate for that function is the
+    # bf16 tensor cores', though B3 runs it on the CUDA cores
+    rate = BF16_OPS_PER_S if precision == "bf16" else FP32_OPS_PER_S
+    bound, by = _bound(cs.bytes_moved(m, nall, nwin, nf, precision),
+                       cs.flops(m, nall, nwin, nf), rate)
+    log(f"B3 {precision} per launch (m={m}, nall={nall}, nwin={nwin}, nf={nf}, "
+        f"win_block={wb}): kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, einsum "
+        f"{t['library_ms']:.4f} ms, bound {bound:.4f} ms ({by})")
+    return {**t, "bound_ms": bound, "bound_by": by, "max_abs_err": err}
+
+
+def phase_long_record() -> dict:
+    """B3 at the long-record entry's shapes, both tiers: 64 source rows of
+    2048 channels x 119 windows, streamed in slabs of 32 (the windows pass
+    through the kernel's ring 7 at a time)."""
+    from das_diff_veh_tpu_torch.ops import all_pairs as ap
+    from das_diff_veh_tpu_torch.ops import cross_spectra as cs
+    from das_diff_veh_tpu_torch.workloads import make_ambient_record
+
+    lr = LONG_RECORD
+    rec = make_ambient_record(lr["nch"], lr["nt"], seed=lr["seed"])
+    wf = ap._window_spectra(rec, lr["wlen"], 0.5)
+    del rec
+    nwin = wf.shape[1]
+    wb = ap._resolve_win_block(nwin, None)
+    out = {"nwin": nwin, "win_block": wb}
+    for tier in ("f32", "bf16"):
+        prep = cs.to_bf16_pairs if tier == "bf16" else (lambda x: x.contiguous())
+        out[tier] = _b3_times(prep(wf[:lr["m"]]), prep(wf), nwin, wb, tier, reps=3)
+    return out
+
+
+def phase_allpairs_times(path: dict) -> list:
+    """B3 in both tiers and B4 on the inputs of their first launch on the
+    config-4 path (single launches between CUDA events; each output is
+    ~2.6 GB for B3, too large for a CUDA graph of many calls), beside their
+    bounds, their plain versions and one PyTorch call computing the same
+    function."""
+    from das_diff_veh_tpu_torch.ops import lag_absmax as la
+
+    entries = []
+    for tier in ("f32", "bf16"):
+        src, rcv, nwin, wb = path["captured"][tier]["cross_spectra"]
+        b3 = _b3_times(src, rcv, nwin, wb, tier)
+        entries.append({"name": "cross_spectra" + ("" if tier == "f32" else "_bf16"),
+                        "route": "cuda",
+                        "source": "das_diff_veh_tpu_torch/csrc/cross_spectra.cu",
+                        "replaces": "das_diff_veh_tpu/ops/pallas_xcorr.py:230",
+                        "launches": path[tier]["launches"]["cross_spectra"], **b3})
+    (lag,) = path["captured"]["f32"]["lag_absmax"]
     npairs, nlag = lag.shape
     k, p = la.lag_absmax_cuda(lag), la.lag_absmax_plain(lag)
     if not same_bits(k, p):
@@ -697,25 +805,15 @@ def phase_allpairs_times(path: dict) -> list:
           "library_ms": event_ms(lambda: torch.linalg.vector_norm(lag, ord=inf, dim=-1),
                                  reps=50)}
     b4_bound, b4_by = _bound(la.bytes_moved(npairs, nlag), 2 * npairs * nlag)
-    log(f"B3 per launch (m={m}, nall={nall}, nwin={nwin}, nf={nf}, win_block={wb}): kernel "
-        f"{b3['ms']:.4f} ms, plain {b3['plain_ms']:.4f} ms, einsum {b3['library_ms']:.4f} ms, "
-        f"bound {b3_bound:.4f} ms ({b3_by})")
     log(f"B4 per launch (npairs={npairs}, nlag={nlag}): kernel {b4['ms']:.5f} ms, plain "
         f"{b4['plain_ms']:.5f} ms, vector_norm {b4['library_ms']:.5f} ms, bound "
         f"{b4_bound:.5f} ms ({b4_by})")
-    launches = path["launches"]
-    return [
-        {"name": "cross_spectra", "route": "cuda",
-         "source": "das_diff_veh_tpu_torch/csrc/cross_spectra.cu",
-         "replaces": "das_diff_veh_tpu/ops/pallas_xcorr.py:230",
-         "launches": launches["cross_spectra"], "max_abs_err": b3_err, **b3,
-         "bound_ms": b3_bound, "bound_by": b3_by},
-        {"name": "lag_absmax", "route": "cuda",
-         "source": "das_diff_veh_tpu_torch/csrc/lag_absmax.cu",
-         "replaces": "das_diff_veh_tpu/ops/pallas_xcorr.py:137",
-         "launches": launches["lag_absmax"], "max_abs_err": b4_err, **b4,
-         "bound_ms": b4_bound, "bound_by": b4_by},
-    ]
+    entries.append({"name": "lag_absmax", "route": "cuda",
+                    "source": "das_diff_veh_tpu_torch/csrc/lag_absmax.cu",
+                    "replaces": "das_diff_veh_tpu/ops/pallas_xcorr.py:137",
+                    "launches": path["f32"]["launches"]["lag_absmax"], "max_abs_err": b4_err,
+                    **b4, "bound_ms": b4_bound, "bound_by": b4_by})
+    return entries
 
 
 def _dot_cfg(precision: str = "f32", finish: str = "dot"):
@@ -1143,6 +1241,8 @@ def main() -> int:
         results["allpairs"] = {k: v for k, v in allpairs.items() if k != "captured"}
         del allpairs
         torch.cuda.empty_cache()
+        results["long_record"] = phase_long_record()
+        torch.cuda.empty_cache()
         results["dot_kernel_vs_plain"] = phase_dot_kernel_vs_plain()
         dot = phase_dot_chunk(section)
         results["dot_chunk_live"] = phase_dot_chunk_live(section)
@@ -1152,7 +1252,7 @@ def main() -> int:
                                 if k not in ("captured", "captured_bf16", "sec32")}
         results["surface_wave_chunk"] = {k: v for k, v in sw.items() if k not in ("sec32", "cfg")}
         del dot, sw
-        # B1, B2 (both tiers), B3, B4
+        # B1, B2 (both tiers), B3 (both tiers), B4
         results["times"]["kernels"] += dot_times.pop("kernels") + allpairs_kernels
         results["dot_times"] = dot_times
     except Exception:
@@ -1166,8 +1266,14 @@ def main() -> int:
     log(json.dumps({"chunk": {"wall_ms_median": results["times"]["chunk_wall_ms_median"],
                               "n_windows": results["main_path"]["n_windows"],
                               "image_peak_rel_err": results["main_path"]["image_peak_rel_err"]}}))
-    log(json.dumps({"allpairs": {k: results["allpairs"][k] for k in (
-        "wall_ms_median", "device_memory_peak_bytes", "f64_peak_rel_err")}}))
+    ap_ = results["allpairs"]
+    log(json.dumps({"allpairs": {
+        "wall_ms_median": ap_["f32"]["wall_ms_median"],
+        "bf16_wall_ms_median": ap_["bf16"]["wall_ms_median"],
+        "device_memory_peak_bytes": ap_["f32"]["device_memory_peak_bytes"],
+        "f64_peak_rel_err": ap_["f32"]["f64_peak_rel_err"],
+        "bf16_vs_f32_peak_rel": ap_["bf16"]["bf16_vs_f32_peak_rel"],
+        "long_record_b3_ms": {t: results["long_record"][t]["ms"] for t in ("f32", "bf16")}}}))
     dt_ = results["dot_times"]
     log(json.dumps({"dot_chunk": {
         "wall_ms_median": dt_["dot_wall_ms_median"],

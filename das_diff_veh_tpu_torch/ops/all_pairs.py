@@ -21,6 +21,12 @@ einsum ``"swf,rwf->srf"`` in the input's dtype computes the same window mean.
 On a CPU tensor the kernel path runs the kernels' plain versions, the
 counterpart of the JAX package's ``interpret=True``.
 
+``precision="bf16"`` rounds both spectra's real and imaginary parts through
+bfloat16 and sums in float32: on the kernel path B3 takes bf16 pairs (the
+receiver side made once per call, the source side once per chunk), as the
+JAX package's bf16 planes; the einsum path rounds both spectra and runs the
+complex64 einsum.
+
 Unlike the JAX package, the last source chunk and the last receiver block are
 sliced, not padded; results per pair are unchanged.  The JAX entries'
 ``interpret`` and ``lag_tile_max`` are TPU tiling knobs and have no
@@ -34,8 +40,9 @@ from typing import Callable
 import torch
 
 from das_diff_veh_tpu_torch.device import resolve_device
-from das_diff_veh_tpu_torch.ops.cross_spectra import cross_spectra
+from das_diff_veh_tpu_torch.ops.cross_spectra import cross_spectra, to_bf16_pairs
 from das_diff_veh_tpu_torch.ops.lag_absmax import lag_absmax
+from das_diff_veh_tpu_torch.ops.precision import bf16_round_complex, check_precision
 from das_diff_veh_tpu_torch.ops.xcorr import sliding_windows
 
 PALLAS_MIN_CH = 512      # below this many channels the einsum path is the default
@@ -64,14 +71,6 @@ def _resolve_lagmax_block(nall: int, use_kernel: bool,
     return min(lagmax_block, nall)
 
 
-def _check_precision(precision: str) -> None:
-    if precision == "bf16":
-        raise NotImplementedError("precision='bf16' is not ported yet: it waits for "
-                                  "the bf16 tier")
-    if precision != "f32":
-        raise ValueError(f"precision must be 'f32' or 'bf16', got {precision!r}")
-
-
 def _decide_kernel(nch: int, use_kernel: bool | None, device: torch.device) -> bool:
     """``None``: the kernels for ``nch >= PALLAS_MIN_CH`` on the card, never
     on the CPU; otherwise what the caller asked for."""
@@ -89,10 +88,13 @@ def _window_spectra(data: torch.Tensor, wlen: int, overlap_ratio: float) -> torc
 
 
 def _einsum_cross_spectra(src_wf: torch.Tensor, all_wf: torch.Tensor,
-                          win_block: int) -> torch.Tensor:
+                          win_block: int, precision: str = "f32") -> torch.Tensor:
     """The path without a kernel: the window mean as an einsum per
     ``win_block`` slab plus a ragged tail, accumulated in the inputs' dtype
-    (complex128 stays complex128) and divided by ``nwin`` at the end."""
+    (complex128 stays complex128) and divided by ``nwin`` at the end.
+    ``"bf16"`` first rounds both spectra through bfloat16 (complex64 out)."""
+    if precision == "bf16":
+        src_wf, all_wf = bf16_round_complex(src_wf), bf16_round_complex(all_wf)
     nwin = src_wf.shape[1]
 
     def ein(s, a):
@@ -112,19 +114,25 @@ def _einsum_cross_spectra(src_wf: torch.Tensor, all_wf: torch.Tensor,
     return acc / nwin
 
 
-def _make_cross_fn(wf_all: torch.Tensor, use_kernel: bool,
-                   win_block: int) -> Callable[[torch.Tensor], torch.Tensor]:
+def _make_cross_fn(wf_all: torch.Tensor, use_kernel: bool, win_block: int,
+                   precision: str = "f32") -> Callable[[torch.Tensor], torch.Tensor]:
     """``cross(src_rows) -> (m, nall, nf)`` window-mean cross-spectra against
-    the fixed receiver set ``wf_all``; the receiver side is made complex64
-    and contiguous once, not once per source chunk."""
+    the fixed receiver set ``wf_all``; the receiver side is made once, not
+    once per source chunk: contiguous complex64, or bf16 pairs in the bf16
+    tier."""
     if not use_kernel:
-        return lambda src_rows: _einsum_cross_spectra(src_rows, wf_all, win_block)
-    rcv = wf_all.to(torch.complex64).contiguous()
+        return lambda src_rows: _einsum_cross_spectra(src_rows, wf_all, win_block,
+                                                      precision)
+    if precision == "bf16":
+        prep = to_bf16_pairs
+    else:
+        def prep(wf):
+            return wf.to(torch.complex64).contiguous()
+    rcv = prep(wf_all)
     nwin = rcv.shape[1]
 
     def cross(src_rows):
-        return cross_spectra(src_rows.to(torch.complex64).contiguous(), rcv, nwin,
-                             win_block)
+        return cross_spectra(prep(src_rows), rcv, nwin, win_block)
 
     return cross
 
@@ -171,13 +179,14 @@ def xcorr_all_pairs(data, wlen: int, overlap_ratio: float = 0.5,
     are finished (irfft, roll, trim) before the next chunk starts.
     ``win_block`` streams the window axis (automatic past ``WIN_BLOCK_AUTO``
     windows).  ``use_kernel``: None = kernel B3 for ``nch >= 512`` on the
-    card, True = B3 (its plain version on the CPU), False = the einsum."""
+    card, True = B3 (its plain version on the CPU), False = the einsum.
+    ``precision``: ``"f32"`` or ``"bf16"`` (module docstring)."""
     dev = resolve_device(device)
     wf = _window_spectra(torch.as_tensor(data).to(dev), wlen, overlap_ratio)
     use_k = _decide_kernel(wf.shape[0], use_kernel, dev)
     wb = _resolve_win_block(wf.shape[1], win_block)
-    _check_precision(precision)
-    cross = _make_cross_fn(wf, use_k, wb)
+    check_precision(precision)
+    cross = _make_cross_fn(wf, use_k, wb, precision)
     mid = wlen // 2
     sl = slice(0, wlen) if lag_keep is None else slice(mid - lag_keep, mid + lag_keep + 1)
 
@@ -198,7 +207,7 @@ def xcorr_all_pairs_peak(data, wlen: int, overlap_ratio: float = 0.5,
 
     Per chunk of ``src_chunk`` source rows: cross-spectra, irfft, lag-axis
     max; nothing larger than (src_chunk, nch, nf) complex64 exists at once.
-    ``use_kernel`` and ``win_block`` as in :func:`xcorr_all_pairs`;
+    ``use_kernel``, ``win_block`` and ``precision`` as in :func:`xcorr_all_pairs`;
     ``lagmax_block`` as in :func:`peak_from_spectra`."""
     dev = resolve_device(device)
     wf = _window_spectra(torch.as_tensor(data).to(dev), wlen, overlap_ratio)
@@ -224,8 +233,8 @@ def peak_from_spectra(wf_src, wf_all, wlen: int, src_chunk: int, use_kernel: boo
     wf_src, wf_all = torch.as_tensor(wf_src).to(dev), torch.as_tensor(wf_all).to(dev)
     wb = _resolve_win_block(wf_src.shape[1], win_block)
     lb = _resolve_lagmax_block(wf_all.shape[0], use_kernel, lagmax_block)
-    _check_precision(precision)
-    cross = _make_cross_fn(wf_all, use_kernel, wb)
+    check_precision(precision)
+    cross = _make_cross_fn(wf_all, use_kernel, wb, precision)
 
     def finish(src_rows):
         c = cross(src_rows)

@@ -20,3 +20,9 @@ def check_precision(precision: str) -> None:
 def bf16_round(x: torch.Tensor) -> torch.Tensor:
     """Round a real tensor through bfloat16 (to nearest even); float32 out."""
     return x.to(torch.bfloat16).to(torch.float32)
+
+
+def bf16_round_complex(x: torch.Tensor) -> torch.Tensor:
+    """Round the real and imaginary parts of a complex tensor through
+    bfloat16; complex64 out (the JAX package's ``_bf16_round_complex``)."""
+    return torch.complex(bf16_round(x.real), bf16_round(x.imag))

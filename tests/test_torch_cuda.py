@@ -193,13 +193,18 @@ def test_small_dot_chunk_on_card_matches_cpu(card, monkeypatch):
 
 # ---- the all-pairs kernels: B3 (cross_spectra.cu) and B4 (lag_absmax.cu) ----
 
-# (m, nall, nwin, nf, win_block): one source row; receivers off the 16-row
-# tile; the config-4 513 frequencies; a ragged slab (7 = 3 + 3 + 1); and the
-# automatic 32-window slabs past 48 windows
+# (m, nall, nwin, nf, win_block), chip_smoke.py's B3 edge cases at smaller
+# receiver counts: one, 63 and 64 source rows (the resident group is 64);
+# fewer receivers than one 16-row tile; 513 frequencies (16 segments of 32
+# and a one-frequency tail), 33 and 1 (a tail alone); a ragged slab (7 = 3 +
+# 3 + 1); and the automatic 32-window slabs past 48 windows, streamed
 B3_CASES = {
     "one_source_ragged_slab": (1, 37, 7, 513, 3),
-    "ragged_tiles_one_slab": (20, 100, 7, 513, None),
-    "auto_slabs": (9, 50, 50, 33, None),
+    "m63_one_slab": (63, 100, 7, 513, None),
+    "m64_nall_below_tile_nf33": (64, 5, 7, 33, None),
+    "nf1": (7, 300, 7, 1, None),
+    "auto_slabs_nwin50": (9, 50, 50, 33, None),
+    "auto_slabs_nwin119": (64, 40, 119, 513, None),
 }
 
 
@@ -208,21 +213,29 @@ def _spectra(card, n, nwin, nf, seed):
     return torch.randn((n, nwin, nf), generator=gen, device=card, dtype=torch.complex64)
 
 
+def _tier(x, precision):
+    from das_diff_veh_tpu_torch.ops import cross_spectra as cs
+
+    return cs.to_bf16_pairs(x) if precision == "bf16" else x.contiguous()
+
+
 def _same(a, b):
     """Equal bit for bit, NaN where NaN (torch.equal counts NaN unequal)."""
     nan = torch.isnan(a)
     return torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan], b[~nan])
 
 
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
 @pytest.mark.parametrize("case", sorted(B3_CASES))
-def test_cross_spectra_kernel_equals_plain(card, case):
+def test_cross_spectra_kernel_equals_plain(card, case, precision):
     from das_diff_veh_tpu_torch.ops import all_pairs as ap
     from das_diff_veh_tpu_torch.ops import cross_spectra as cs
 
     m, nall, nwin, nf, wb = B3_CASES[case]
     wb = ap._resolve_win_block(nwin, wb)
     rcv = _spectra(card, nall, nwin, nf, 5)
-    src = rcv[:m].contiguous() if m <= nall else _spectra(card, m, nwin, nf, 6)
+    src = rcv[:m] if m <= nall else _spectra(card, m, nwin, nf, 6)
+    src, rcv = _tier(src, precision), _tier(rcv, precision)
     before = cs.launches
     k = cs.cross_spectra(src, rcv, nwin, wb)
     p = cs.cross_spectra_plain(src, rcv, nwin, wb)
@@ -233,15 +246,17 @@ def test_cross_spectra_kernel_equals_plain(card, case):
     assert torch.equal(k, p)
 
 
-def test_cross_spectra_pairs_do_not_depend_on_tiling(card):
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_cross_spectra_pairs_do_not_depend_on_tiling(card, precision):
     """One pair's sum is the same bits whatever the number of source rows in
     the launch and whatever receiver set it runs against."""
     from das_diff_veh_tpu_torch.ops import cross_spectra as cs
 
     rcv = _spectra(card, 300, 7, 513, 8)
-    full = cs.cross_spectra_cuda(rcv[:64].contiguous(), rcv, 7, 7)
-    few = cs.cross_spectra_cuda(rcv[:16].contiguous(), rcv, 7, 7)
-    subset = cs.cross_spectra_cuda(rcv[:16].contiguous(), rcv[101:250].contiguous(), 7, 7)
+    full = cs.cross_spectra_cuda(_tier(rcv[:64], precision), _tier(rcv, precision), 7, 7)
+    few = cs.cross_spectra_cuda(_tier(rcv[:16], precision), _tier(rcv, precision), 7, 7)
+    subset = cs.cross_spectra_cuda(_tier(rcv[:16], precision),
+                                   _tier(rcv[101:250], precision), 7, 7)
     assert torch.equal(full[:16], few)
     assert torch.equal(few[:, 101:250], subset)
 
@@ -274,6 +289,15 @@ def test_all_pairs_kernels_reject_what_they_do_not_take(card):
         cs.cross_spectra_cuda(s, s.transpose(0, 1).contiguous().transpose(0, 1), 7, 7)
     with pytest.raises(ValueError, match="win_block"):
         cs.cross_spectra_cuda(s, s, 7, 8)
+    b = cs.to_bf16_pairs(s)
+    with pytest.raises(ValueError, match="bfloat16"):      # the tiers mixed
+        cs.cross_spectra_cuda(b, s, 7, 7)
+    with pytest.raises(ValueError, match="bfloat16"):      # float16 pairs
+        cs.cross_spectra_cuda(b, b.to(torch.float16), 7, 7)
+    with pytest.raises(ValueError, match="complex64"):     # bf16 receivers, f32 sources
+        cs.cross_spectra_cuda(s, b, 7, 7)
+    with pytest.raises(ValueError, match="contiguous"):
+        cs.cross_spectra_cuda(b, b.transpose(0, 1).contiguous().transpose(0, 1), 7, 7)
     with pytest.raises(ValueError, match="float32"):
         la.lag_absmax_cuda(torch.zeros((4, 8), dtype=torch.float64, device=card))
     with pytest.raises(ValueError, match="contiguous"):
