@@ -19,6 +19,8 @@ Valid windows are exact copies of the record.
   rolls zero lag to ``wlen//2``.  For a CUDA tensor it launches
   ``csrc/traj_dot.cu`` or raises; for a CPU tensor it runs
   :func:`correlate_dot_plain`.  ``dot_launches`` counts its launches.
+  :func:`correlate_dot_gemm_plain` is the same function in the layout of
+  the kernel's tensor-core tier (for the tests and ``chip_smoke.py``).
 """
 
 from __future__ import annotations
@@ -36,6 +38,8 @@ dot_launches = 0    # csrc/traj_dot.cu
 FUSED_MAX_NWIN = 64
 DOT_MAX_WLEN = 256
 DOT_MAX_MATRIX_ELEMS = 1 << 20
+# the longest window csrc/traj_dot.cu takes (its shared memory at one window a group)
+DOT_KERNEL_MAX_WLEN = 3072
 
 
 def _resolve_caps(max_nwin: int | None, dot_max_wlen: int | None,
@@ -192,20 +196,70 @@ def correlate_dot_plain(data: torch.Tensor, scal: torch.Tensor, pivot_idx: int,
     acc = torch.zeros_like(rcv)
     for n in range(wlen):
         acc = acc + s2[..., n:n + wlen] * rcv[..., n:n + 1]     # c[w, lag] += s2[n+lag] r[n]
-    c = acc.to(data.dtype)
+    return _window_mean_rolled(acc.to(data.dtype), scal, nwin, wlen, offset)
+
+
+def _window_mean_rolled(c: torch.Tensor, scal: torch.Tensor, nwin: int, wlen: int,
+                        offset: int) -> torch.Tensor:
+    """The dot finish's tail on window correlations ``c`` (B, nk, nwin,
+    wlen): the sum over ascending ``w`` from zero, one division by
+    ``max(n_eff, 1)``, the roll of zero lag to ``wlen//2``."""
     tot = torch.zeros_like(c[..., 0, :])
     for w in range(nwin):
         tot = tot + c[..., w, :]
-    starts = torch.arange(nwin, device=data.device) * offset
+    starts = torch.arange(nwin, device=c.device) * offset
     n_eff = ((starts + wlen) <= scal[..., 1:2]).sum(-1).to(c.dtype)
     return torch.roll(tot / n_eff.clamp(min=1)[..., None], wlen // 2, dims=-1)
+
+
+def correlate_dot_gemm_plain(data: torch.Tensor, scal: torch.Tensor, pivot_idx: int,
+                             nwin: int, wlen: int, offset: int, swap: bool = False,
+                             precision: str = "f32") -> torch.Tensor:
+    """The layout of ``csrc/traj_dot.cu``'s bf16 (tensor-core) tier in plain
+    PyTorch, same contract as :func:`correlate_dot_plain`.
+
+    With ``lag = 8u + q`` (``q < 8``), ``c[8u + q] = sum_k s2[k + 8u]
+    r[k - q]`` is one matrix product per window, ``C = A @ B``:
+    ``A[u, k] = s2[k + 8u]`` is the doubled source window, zero past
+    ``2*wlen``, read with ``as_strided((M, K), (8, 1))``; ``B[k, q] =
+    r[k - q]`` holds 8 shifted copies of the receiver window, zero outside
+    ``[0, wlen)``; ``C[u, q]`` read row-major is ``c`` in lag order.  ``M``
+    is 32 rows per 256-lag tile and ``K = roundup(wlen + 7, 16)``, the
+    kernel's padding.  The products run in the data's dtype (``"bf16"``:
+    bfloat16-rounded operands in float32, cast back before the window sum,
+    as :func:`correlate_dot_plain` casts); the window sum, the division and
+    the roll are the plain version's.  Only the tests and ``chip_smoke.py``
+    call it."""
+    check_precision(precision)
+    wins_ch, wins_pv = pack_windows_plain(data, scal, pivot_idx, nwin, wlen, offset)
+    src, rcv = (wins_pv, wins_ch) if swap else (wins_ch, wins_pv)
+    if precision == "bf16":
+        src, rcv = bf16_round(src), bf16_round(rcv)
+    lead = src.shape[:-1]                                       # (B, nk, nwin)
+    m = 32 * (-(-wlen // 256))
+    k = -(-(wlen + 7) // 16) * 16
+    s2 = src.new_zeros((*lead, 8 * (m - 1) + k))
+    s2[..., :wlen] = src
+    s2[..., wlen:2 * wlen] = src
+    s2 = s2.contiguous()
+    a = s2.as_strided((*lead, m, k), (*s2.stride()[:-1], 8, 1))
+    r_pad = rcv.new_zeros((*lead, k + 8))
+    r_pad[..., 8:8 + wlen] = rcv                                # r[i] at r_pad[i + 8]
+    shift = (torch.arange(k, device=data.device)[:, None]
+             - torch.arange(8, device=data.device)[None, :] + 8)
+    b = r_pad[..., shift]                                       # (B, nk, nwin, K, 8)
+    c = torch.matmul(a, b).reshape(*lead, 8 * m)[..., :wlen]
+    return _window_mean_rolled(c.to(data.dtype), scal, nwin, wlen, offset)
 
 
 def correlate_dot_cuda(data: torch.Tensor, scal: torch.Tensor, pivot_idx: int,
                        nwin: int, wlen: int, offset: int, swap: bool = False,
                        precision: str = "f32") -> torch.Tensor:
     """Launch ``csrc/traj_dot.cu`` on PyTorch's current stream; same contract
-    as :func:`correlate_dot_plain` (float32 only)."""
+    as :func:`correlate_dot_plain` (float32 only).  The f32 tier equals the
+    plain version bit for bit; the bf16 tier runs on the tensor cores, which
+    sum the exact bfloat16 products in their own order (within 1e-5
+    peak-relative of the plain version)."""
     global dot_launches
     from das_diff_veh_tpu_torch import kernels
 
@@ -220,6 +274,9 @@ def correlate_dot_cuda(data: torch.Tensor, scal: torch.Tensor, pivot_idx: int,
             or not scal.is_contiguous() or scal.shape[0] != nb or scal.shape[-1] != 3):
         raise ValueError(f"traj_dot scalars must be a contiguous (B, nk, 3) int32 tensor "
                          f"on {data.device}, got {tuple(scal.shape)} {scal.dtype}")
+    if not (1 <= wlen <= DOT_KERNEL_MAX_WLEN and offset >= 1):
+        raise ValueError(f"traj_dot kernel takes 1 <= wlen <= {DOT_KERNEL_MAX_WLEN} and "
+                         f"offset >= 1, got wlen={wlen}, offset={offset}")
     nk = scal.shape[1]
     out = torch.empty((nb, nk, wlen), dtype=torch.float32, device=data.device)
     fn = kernels.load("traj_dot").traj_dot_correlate

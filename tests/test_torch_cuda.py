@@ -58,6 +58,39 @@ def test_traj_gather_kernel_equals_plain(card, case):
         assert not k[0][:, :2].any()
 
 
+# (nb, nk, nsamp, wlen, offset, backward) of the flat, 16-byte-store layout's
+# edges: rows of 99 floats (wlen 33, not a multiple of 4, so groups of 4
+# straddle windows and rows), one channel, the main path's grid of 64 slots
+# x 25 rows, and windows of 1 and 3 samples (a group of 4 spans windows)
+B1_SHAPES = {"wlen33_rows_of_99": (8, 10, 99, 33, 33, False),
+             "nk1": (64, 1, 999, 500, 250, True),
+             "main_grid_64x25": (64, 25, 999, 500, 250, True),
+             "wlen1": (3, 5, 7, 1, 2, False),
+             "wlen3_nwin1": (5, 3, 3, 3, 1, True)}
+
+
+@pytest.mark.parametrize("shape", sorted(B1_SHAPES))
+def test_traj_gather_kernel_equals_plain_at_layout_edges(card, shape):
+    """Starts at every alignment mod 4, rows truncated at the record end and
+    empty: the cut is a copy, so equal bit for bit."""
+    nb, nk, nsamp, wlen, offset, backward = B1_SHAPES[shape]
+    nch, nt = 37, 2000
+    nwin = (nsamp - wlen) // offset + 1
+    gen = torch.Generator(device=card).manual_seed(5)
+    rec = torch.randn((nb, nch, nt), generator=gen, device=card)
+    idx = torch.randint(0, nt + nsamp, (nb, nk), generator=gen, device=card)
+    idx.view(-1)[:4] = torch.arange(4, device=card) + (nsamp if backward else 0)  # base % 4
+    ch = torch.arange(nk, device=card) % (nch - 1)
+    scal = tg.traj_scalars(idx, ch, nch, nt, nsamp, backward).contiguous()
+    assert set((scal[..., 0] % 4).flatten().tolist()) == {0, 1, 2, 3}
+    before = tg.launches
+    k = tg.pack_windows_cuda(rec, scal, nch - 1, nwin, wlen, offset)
+    p = tg.pack_windows_plain(rec, scal, nch - 1, nwin, wlen, offset)
+    torch.cuda.synchronize()
+    assert tg.launches == before + 1
+    assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+
+
 def test_traj_follow_windows_one_launch_for_all_slots(card):
     rec = torch.randn((64, 37, NT), device=card)
     before = tg.launches
@@ -106,22 +139,40 @@ def test_small_chunk_on_card_matches_cpu(card):
 # ---- the dot finish: B2 (traj_dot.cu) ----
 
 # (wlen, nsamp): the dot chunk's 250 samples (nwin 6), a whole-warp 256 at
-# nwin 16 (nwin*wlen^2 = 2^20, the cap), 64, and 33 (off the warp width)
+# nwin 16 (nwin*wlen^2 = 2^20, the cap), 64, 33 (off the warp width), and
+# 64 windows of 128 (the gate's other corner, nwin*wlen^2 = 2^20: the
+# windows pass through shared memory 8 at a time), and the kernel's longest
+# window, 3072 (one window a group, past 48 KB of shared memory in f32)
 DOT_SHAPES = {"w250": (250, 999), "w256_nwin16": (256, 15 * 128 + 256),
-              "w64": (64, 300), "w33_nwin1": (33, 40)}
+              "w64": (64, 300), "w33_nwin1": (33, 40), "w128_nwin64": (128, 63 * 64 + 128),
+              "w3072_nwin2": (3072, 3072 + 1536)}
+# The bf16 tier on the tensor cores: the bfloat16 products are exact in
+# float32, but the tensor core sums them in its own order, so the tier is
+# held at 1e-5 peak-relative per launch (tests/test_torch_traj_dot.py's
+# BF16_TOL) against the plain version's sequential float32 sum and against
+# a float64 evaluation of the same bfloat16 operands.
+DOT_BF16_TOL = 1e-5
+
+
+def _peak_rel(a, ref):
+    a, ref = a.double().cpu(), ref.double().cpu()
+    return float((a - ref).abs().max() / ref.abs().max().clamp(min=1e-300))
 
 
 @pytest.mark.parametrize("precision", ["f32", "bf16"])
 @pytest.mark.parametrize("shape", sorted(DOT_SHAPES))
 def test_traj_dot_kernel_equals_plain(card, shape, precision):
-    """Every product and sum rounded where the plain version rounds it, in
-    the same order: equal bit for bit in both tiers, forward and swapped,
-    with rows truncated at the record end and backward empty slices."""
+    """f32: every product and sum rounded where the plain version rounds it,
+    in the same order, so equal bit for bit; bf16: within DOT_BF16_TOL of
+    the plain version and of float64.  Forward and swapped, with rows
+    truncated at the record end and backward empty slices."""
+    from das_diff_veh_tpu_torch.ops.precision import bf16_round
+
     wlen, nsamp = DOT_SHAPES[shape]
     offset = wlen // 2
     nwin = (nsamp - wlen) // offset + 1
     gen = torch.Generator(device=card).manual_seed(13)
-    nb, nch, nt = 8, 12, 3000
+    nb, nch, nt = 8, 12, max(3000, nsamp + 600)
     rec = torch.randn((nb, nch, nt), generator=gen, device=card)
     ch = torch.arange(1, 11, device=card)
     for backward, swap in ((False, False), (True, True), (False, True)):
@@ -133,7 +184,13 @@ def test_traj_dot_kernel_equals_plain(card, shape, precision):
         torch.cuda.synchronize()
         assert tg.dot_launches == before + 1
         assert k.shape == (nb, ch.numel(), wlen)
-        assert torch.equal(k, p), (backward, swap)
+        if precision == "f32":
+            assert torch.equal(k, p), (backward, swap)
+        else:
+            f64 = tg.correlate_dot_plain(bf16_round(rec).double(), scal, 5, nwin, wlen, offset,
+                                         swap)
+            assert _peak_rel(k, p) <= DOT_BF16_TOL, (backward, swap)
+            assert _peak_rel(k, f64) <= DOT_BF16_TOL, (backward, swap)
         empty = scal[..., 1] < wlen
         assert not k[empty].any()
 
@@ -152,6 +209,10 @@ def test_traj_dot_one_launch_for_all_slots_and_rejects(card):
         tg.correlate_dot_cuda(rec[:1].contiguous(), scal.long(), 5, 6, 250, 125)
     with pytest.raises(ValueError, match="precision"):
         tg.correlate_dot_cuda(rec[:1].contiguous(), scal, 5, 6, 250, 125, precision="fp8")
+    with pytest.raises(ValueError, match="wlen <= 3072"):
+        tg.correlate_dot_cuda(rec[:1].contiguous(), scal, 5, 1, tg.DOT_KERNEL_MAX_WLEN + 1, 1)
+    with pytest.raises(ValueError, match="offset >= 1"):
+        tg.correlate_dot_cuda(rec[:1].contiguous(), scal, 5, 1, 250, 0)
 
 
 def test_small_dot_chunk_on_card_matches_cpu(card, monkeypatch):

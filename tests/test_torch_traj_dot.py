@@ -228,3 +228,75 @@ def test_dot_flops_and_bytes_count_valid_windows():
     assert tg.dot_flops(scal, NWIN, WLEN, OFFSET) == 2 * 5 * WLEN * WLEN
     nbytes = tg.bytes_moved(scal, NCH, NT, PIVOT, NWIN, WLEN, OFFSET, out_elems=2 * WLEN)
     assert nbytes == 4 * (2 * 750 + 2 * WLEN) + scal.numel() * 4
+
+
+# ---- the GEMM layout of the kernel's bf16 tier (correlate_dot_gemm_plain) ----
+
+GEMM_WLENS = [1, 5, 8, 33, 64, 250, 256]
+
+
+def _gemm_case(wlen, seed):
+    """A 3-window record and, per trajectory direction, starts with full,
+    truncated and empty rows: (data, [(dt_idx, backward, swap), ...])."""
+    offset = max(1, wlen // 2)
+    nsamp = 2 * offset + wlen
+    nt = 4 * nsamp + 40
+    data = np.random.default_rng(seed).standard_normal((NCH, nt))
+    forward = np.array([0, nsamp, nt - nsamp + offset + 1, nt])       # full, full, truncated, empty
+    backward = np.array([nsamp + 5, nt, nt + offset + 1, nsamp - 1])  # ..., truncated, empty slice
+    return data, offset, nsamp, [(forward, False, False), (backward, True, True)]
+
+
+def _dot_rows(fn, data, dt_idx, backward, swap, offset, nsamp, wlen, precision):
+    t = torch.from_numpy(data)
+    scal = tg.traj_scalars(torch.from_numpy(dt_idx), torch.from_numpy(CH), NCH, data.shape[1],
+                           nsamp, backward)
+    nwin = (nsamp - wlen) // offset + 1
+    return fn(t[None], scal[None], PIVOT, nwin, wlen, offset, swap, precision)[0].numpy(), scal
+
+
+@pytest.mark.parametrize("wlen", GEMM_WLENS)
+def test_gemm_layout_matches_plain_float64(wlen):
+    """The kernel's M/K padding and zero fill: equal to the direct sum up to
+    float64 rounding, with swap, truncated and empty rows."""
+    data, offset, nsamp, cases = _gemm_case(wlen, 60 + wlen)
+    for dt_idx, backward, swap in cases:
+        got, scal = _dot_rows(tg.correlate_dot_gemm_plain, data, dt_idx, backward, swap,
+                              offset, nsamp, wlen, "f32")
+        want, _ = _dot_rows(tg.correlate_dot_plain, data, dt_idx, backward, swap, offset,
+                            nsamp, wlen, "f32")
+        assert got.dtype == np.float64 and got.shape == (CH.size, wlen)
+        assert _peak_rel(got, want) <= TOL[np.float64]
+        empty = (scal[:, 1] < wlen).numpy()
+        assert empty.any() and not got[empty].any()
+        assert np.abs(got[~empty]).max() > 0
+
+
+@pytest.mark.parametrize("wlen", GEMM_WLENS)
+def test_gemm_layout_matches_plain_bf16(wlen):
+    """bfloat16 operands, float32 sums in the matmul's order against the
+    plain version's sequential order."""
+    data, offset, nsamp, cases = _gemm_case(wlen, 70 + wlen)
+    data = data.astype(np.float32)
+    for dt_idx, backward, swap in cases:
+        got, _ = _dot_rows(tg.correlate_dot_gemm_plain, data, dt_idx, backward, swap, offset,
+                           nsamp, wlen, "bf16")
+        want, _ = _dot_rows(tg.correlate_dot_plain, data, dt_idx, backward, swap, offset,
+                            nsamp, wlen, "bf16")
+        assert got.dtype == np.float32
+        assert _peak_rel(got, want) <= BF16_TOL
+
+
+@pytest.mark.parametrize("wlen", GEMM_WLENS)
+def test_gemm_layout_matches_jax_bf16_interpret(wlen):
+    """The same layout against the Pallas dot kernel's bf16 tier."""
+    data, offset, nsamp, cases = _gemm_case(wlen, 80 + wlen)
+    data = data.astype(np.float32)
+    for dt_idx, backward, swap in cases:
+        got, _ = _dot_rows(tg.correlate_dot_gemm_plain, data, dt_idx, backward, swap, offset,
+                           nsamp, wlen, "bf16")
+        want = np.asarray(pg.traj_follow_correlate_dot(
+            jnp.asarray(data), PIVOT, jnp.asarray(CH), jnp.asarray(dt_idx), nsamp, wlen, offset,
+            backward=backward, swap=swap, interpret=True, precision="bf16"))
+        assert got.shape == want.shape
+        assert _peak_rel(got, want) <= BF16_TOL
