@@ -58,9 +58,20 @@ Phases, each of which must pass:
    beside its bound, the f32 tier's issue floor and its plain version; the
    rfft finish on the same inputs as a yardstick; the warm wall times of the
    dot and surface_wave chunks (``--profile`` adds a per-operator breakdown
-   of each).
+   of each);
+14. batch: ``run_directory`` over a folder of 8 full-size chunk files (the
+   chunk scene at seeds 2-9, one planted degraded file, one poisoned, one
+   garbage) with the health screen on: the accumulated image at prefetch
+   depths 0 and 2, and after a resume, equal to a serial loop of
+   ``process_chunk`` bit for bit; exactly the planted files quarantined
+   (garbage at "load", poisoned at "compute") and one degraded; 2 launches
+   of B1 per computed chunk; the health screen on the card ``torch.equal``
+   to the CPU's; the trace's loader spans overlapping compute at depth 2;
+   then chunks/s at depths 0 and 2 (median of 3 runs each, the reader's
+   savgol pre-smooth on) and the host, staging and compute ms per file.
 
-The line before the last is a JSON object ``{"kernels": [...]}``; the last
+The line before the last is a JSON object ``{"kernels": [...]}``, after
+``{"batch": {...}}`` and the card's name and power limit; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the rest of the repository beside it, the script exits non-zero and prints
 no result.
@@ -1277,6 +1288,259 @@ def phase_dot_times(dot: dict, sw: dict, profile: bool = False) -> dict:
             "profile": profiles}
 
 
+# The batch phase: 8 files of one date at 2-minute spacing, each the chunk
+# scene at full size (seeds 2-9; the first is the main path's scene).  File 3
+# gets 3 NaN channels and a constant one (degraded), file 5 80 NaN channels
+# (80/140 > max_masked_fraction 0.5: poisoned), file 6 garbage bytes.  A NaN
+# channel is a burst of a quarter of the record inside it, as the fault
+# injector plants one: the reader's savgol pre-smooth refuses NaN at the
+# record's ends (its edge fit), which would quarantine the file at "load"
+# before the health screen sees it.
+BATCH_DATE = "20230301"
+BATCH_SEEDS = tuple(range(2, 10))
+BATCH_DEGRADED, BATCH_POISONED, BATCH_GARBAGE = 3, 5, 6
+BATCH_NAN_CHANNELS = (10, 50, 90)
+BATCH_FLAT_CHANNEL = 120
+BATCH_POISON_CHANNELS = 80
+BATCH_NAN_BURST = slice(10000, 17500)
+BATCH_TIMED_RUNS = 3
+
+
+def _batch_file(i: int) -> str:
+    return f"{BATCH_DATE}_{i * 2 // 60:02d}{i * 2 % 60:02d}00.npz"
+
+
+def _write_batch_file(day: str, i: int, seed: int, data=None, x=None, t=None) -> str:
+    """Write file ``i`` of the batch folder (the scene of ``seed`` unless its
+    arrays are given), with its planted fault.  Top level, so that a
+    spawned worker can run it."""
+    import os
+
+    sys.path.insert(0, str(REPO))
+    from das_diff_veh_tpu_torch.io.synthetic import SceneConfig, synthesize_section
+
+    path = os.path.join(day, _batch_file(i))
+    if i == BATCH_GARBAGE:
+        with open(path, "wb") as f:
+            f.write(b"not an npz file: the loader must quarantine this chunk")
+        return path
+    if data is None:
+        sec, _ = synthesize_section(SceneConfig(**{**SCENE, "seed": seed}))
+        data, x, t = sec.data.numpy(), sec.x.numpy(), sec.t.numpy()
+    data = np.array(data)
+    if i == BATCH_DEGRADED:
+        data[list(BATCH_NAN_CHANNELS), BATCH_NAN_BURST] = np.nan
+        data[BATCH_FLAT_CHANNEL] = 0.25
+    if i == BATCH_POISONED:
+        data[:BATCH_POISON_CHANNELS, BATCH_NAN_BURST] = np.nan
+    np.savez(path, data=data, x_axis=x, t_axis=t)
+    return path
+
+
+def _batch_folder(root: str, section) -> str:
+    """The 8 files, synthesized in parallel (one spawned worker each; the
+    first reuses the main path's scene)."""
+    import multiprocessing as mp
+    import os
+    from concurrent.futures import ProcessPoolExecutor
+
+    day = os.path.join(root, BATCH_DATE)
+    os.makedirs(day)
+    _write_batch_file(day, 0, BATCH_SEEDS[0], section.data.numpy(), section.x.numpy(),
+                      section.t.numpy())
+    rest = list(enumerate(BATCH_SEEDS))[1:]
+    with ProcessPoolExecutor(max_workers=min(len(rest), os.cpu_count() or 1),
+                             mp_context=mp.get_context("spawn")) as pool:
+        for fut in [pool.submit(_write_batch_file, day, i, s) for i, s in rest]:
+            fut.result()
+    return day
+
+
+def _overlaps(events, names=("read", "preprocess")) -> int:
+    """Loader spans (``names``) that overlap a compute span of another
+    thread."""
+    spans = [e for e in events if e["ph"] == "X"]
+    comp = [e for e in spans if e["name"] == "compute"]
+    return sum(1 for a in spans if a["name"] in names for c in comp
+               if a["tid"] != c["tid"] and a["ts"] < c["ts"] + c["dur"]
+               and c["ts"] < a["ts"] + a["dur"])
+
+
+def _stage_ms(events, name: str) -> float:
+    """Median duration of the ``name`` spans of a trace, in ms."""
+    return float(np.median([e["dur"] / 1e3 for e in events
+                            if e["ph"] == "X" and e["name"] == name]))
+
+
+def phase_batch(section, nvidia_smi: str) -> dict:
+    """``run_directory`` over a folder of full-size chunks on the card:
+    prefetch at depths 0 and 2 against a serial loop of ``process_chunk``,
+    quarantine of the planted faults, resume, the health screen on the card
+    against the CPU, B1's launches, the loader's spans against compute, and
+    the batch times."""
+    import os
+    import tempfile
+
+    from scipy.signal import savgol_coeffs
+
+    from das_diff_veh_tpu_torch.config import HealthConfig, PipelineConfig
+    from das_diff_veh_tpu_torch.io.readers import DirectoryDataset
+    from das_diff_veh_tpu_torch.pipeline.timelapse import process_chunk
+    from das_diff_veh_tpu_torch.pipeline.workflow import run_directory
+    from das_diff_veh_tpu_torch.resilience.health import screen_arrays
+    from das_diff_veh_tpu_torch.runtime import RuntimeConfig, load_trace
+
+    cfg = PipelineConfig().replace(health=HealthConfig(enabled=True))
+    computed = [i for i in range(len(BATCH_SEEDS)) if i not in (BATCH_POISONED, BATCH_GARBAGE)]
+    want_quarantine = {_batch_file(BATCH_GARBAGE): "load", _batch_file(BATCH_POISONED): "compute"}
+    chunk_launches = {**NO_LAUNCHES, "traj_gather": 2 * len(computed)}
+    (REPO / "build").mkdir(exist_ok=True)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=REPO / "build", prefix="batch_smoke_") as root:
+        _batch_folder(root, section)
+        folder_s = time.perf_counter() - t_phase
+        log(f"batch folder: {len(BATCH_SEEDS)} files of {tuple(section.data.shape)} float64 "
+            f"written in {folder_s:.1f} s")
+
+        def dataset(smoothing: bool):
+            return DirectoryDataset(BATCH_DATE, root=root, ch1=None, ch2=None,
+                                    smoothing=smoothing, rescale_after=None)
+
+        def run(depth: int, smoothing: bool = False, trace=None, **kw):
+            runtime = RuntimeConfig(prefetch_depth=depth, retry_backoff_s=0.0,
+                                    trace_path=trace)
+            reset_counts()
+            res = run_directory(dataset(smoothing), cfg, x_is_channels=False,
+                                runtime=runtime, device="cuda", **kw)
+            counts = read_counts()
+            got_q = {q.key: q.stage for q in res.quarantined}
+            return res, counts, got_q
+
+        # the serial reference: process_chunk file by file, in sorted order
+        ds = dataset(False)
+        ref, ref_veh, ref_chunks, ref_deg = None, 0, 0, 0
+        for i in computed:
+            chunk = process_chunk(ds[i].to("cuda", torch.float32), cfg, x_is_channels=False,
+                                  device="cuda")
+            ref_deg += int(chunk.health.degraded)
+            if chunk.n_windows > 0:
+                img = chunk.disp_image.cpu().numpy()
+                ref = img if ref is None else ref + img
+                ref_veh += chunk.n_windows
+                ref_chunks += 1
+        log(f"batch serial reference: {ref_chunks} chunks with windows, {ref_veh} vehicles, "
+            f"{ref_deg} degraded")
+        if ref is None or ref_deg != 1:
+            raise AssertionError("the serial reference must image vehicles and degrade file 3")
+
+        results = {}
+        for depth in (0, 2):
+            trace = os.path.join(root, f"trace_depth{depth}.jsonl")
+            res, counts, got_q = run(depth, trace=trace)
+            events = load_trace(trace)
+            spans = {e["name"] for e in events if e["ph"] == "X"}
+            overlap = _overlaps(events)
+            equal = res.avg_image is not None and bool(np.array_equal(res.avg_image, ref))
+            log(f"batch depth {depth}: avg_image equal to the serial loop {equal}, vehicles "
+                f"{res.n_vehicles}, chunks {res.n_chunks}, degraded {res.n_degraded}, "
+                f"quarantined {got_q}, launches {counts}, loader spans overlapping compute "
+                f"{overlap}")
+            if not equal or (res.n_vehicles, res.n_chunks) != (ref_veh, ref_chunks):
+                raise AssertionError(f"batch depth {depth}: the run differs from the serial loop")
+            if got_q != want_quarantine or res.n_degraded != 1:
+                raise AssertionError(f"batch depth {depth}: quarantined {got_q}, degraded "
+                                     f"{res.n_degraded}; planted {want_quarantine} and 1")
+            if counts != chunk_launches:
+                raise AssertionError(f"batch depth {depth}: launches {counts}, expected "
+                                     f"{chunk_launches}")
+            missing = {"read", "preprocess", "device_put", "compute", "accumulate"} - spans
+            if missing:
+                raise AssertionError(f"batch trace lacks the spans {missing}")
+            if depth == 2 and overlap == 0:
+                raise AssertionError("batch depth 2: no read/preprocess span overlaps compute")
+            results[depth] = {"n_vehicles": res.n_vehicles, "n_chunks": res.n_chunks,
+                              "launches": counts, "loader_compute_overlaps": overlap}
+
+        out = os.path.join(root, "out")
+        first, c1, _ = run(2, out_dir=out, max_chunks=3)
+        second, c2, q2 = run(2, out_dir=out)
+        resumed_equal = second.avg_image is not None and bool(np.array_equal(second.avg_image,
+                                                                             ref))
+        log(f"batch resume: first run {c1['traj_gather'] // 2} chunks (complete "
+            f"{first.complete}), second run resumed {second.n_resumed} and computed "
+            f"{c2['traj_gather'] // 2}, quarantined {q2}, avg_image equal {resumed_equal}")
+        if first.complete or second.n_resumed != 3 or not second.complete \
+                or c2["traj_gather"] != 2 * (len(computed) - 3) or q2 != want_quarantine \
+                or not resumed_equal:
+            raise AssertionError("batch resume: the resumed run differs from the whole one")
+
+        data32 = ds[BATCH_DEGRADED].data.to(torch.float32)
+        card_data, card_h = screen_arrays(data32.cuda(), cfg.health, tag="batch_check")
+        cpu_data, cpu_h = screen_arrays(data32, cfg.health, tag="batch_check")
+        screen_equal = bool(torch.equal(card_data.cpu(), cpu_data)
+                            and np.array_equal(card_h.healthy, cpu_h.healthy)
+                            and card_h.summary() == cpu_h.summary()
+                            and card_h.nan_fraction == cpu_h.nan_fraction)
+        log(f"batch health screen of file {BATCH_DEGRADED}, card vs CPU: equal {screen_equal}, "
+            f"{card_h.summary()}")
+        if not screen_equal or card_h.n_masked != len(BATCH_NAN_CHANNELS) + 1:
+            raise AssertionError("the card's health screen differs from the CPU's")
+
+        # the times: the reader as users run it (savgol pre-smooth on); one
+        # warm run, then untraced runs at each depth in turns for chunks/s,
+        # and one traced run at each depth for the time by stage
+        gain = float(savgol_coeffs(21, 15).sum())
+        run(2, smoothing=True)
+        times, traces, smooth = {0: [], 2: []}, {}, {}
+        for rep in range(BATCH_TIMED_RUNS + 1):
+            for depth in (0, 2):
+                trace = os.path.join(root, f"timed_{depth}.jsonl") if rep == 0 else None
+                res, counts, got_q = run(depth, smoothing=True, trace=trace)
+                if trace is None:
+                    times[depth].append(res.chunks_per_s)
+                else:
+                    traces[depth] = load_trace(trace)
+                smooth.setdefault(depth, (res.avg_image, res.n_vehicles, got_q))
+                if counts != chunk_launches or got_q != want_quarantine:
+                    raise AssertionError(f"batch timed run: launches {counts}, quarantined "
+                                         f"{got_q}")
+        a0, a2 = smooth[0], smooth[2]
+        same = a0[1] == a2[1] and a0[2] == a2[2] and (
+            (a0[0] is None and a2[0] is None) or
+            (a0[0] is not None and a2[0] is not None and np.array_equal(a0[0], a2[0])))
+        if not same:
+            raise AssertionError("batch timed runs: depth 0 and depth 2 differ")
+    stage = {name: _stage_ms(traces[0], name)
+             for name in ("read", "preprocess", "device_put", "compute")}
+    # the same stages while the loader and the compute thread overlap
+    stage2 = {name: _stage_ms(traces[2], name)
+              for name in ("read", "preprocess", "device_put", "compute")}
+    batch = {"device": nvidia_smi, "files": len(BATCH_SEEDS), "computed_chunks": len(computed),
+             "chunks_per_s_depth0": float(np.median(times[0])),
+             "chunks_per_s_depth2": float(np.median(times[2])),
+             "chunks_per_s_runs": {str(d): times[d] for d in times},
+             "read_preprocess_ms_per_file": stage["read"] + stage["preprocess"],
+             "read_ms_per_file": stage["read"], "preprocess_ms_per_file": stage["preprocess"],
+             "device_staging_ms_per_file": stage["device_put"],
+             "compute_ms_per_chunk": stage["compute"],
+             "depth2_stage_ms": stage2,
+             "loader_compute_overlaps_depth2": _overlaps(traces[2]),
+             "smoothed_n_vehicles": a0[1], "savgol_21_15_dc_gain": gain,
+             "launches_per_run": chunk_launches["traj_gather"], "folder_s": folder_s,
+             "phase_s": time.perf_counter() - t_phase}
+    log(f"batch times ({nvidia_smi}; savgol pre-smooth on, its (21, 15) DC gain {gain:.3e}, "
+        f"{a0[1]} vehicles; untraced runs): chunks/s depth 0 {times[0]} (median "
+        f"{batch['chunks_per_s_depth0']:.3f}), depth 2 {times[2]} (median "
+        f"{batch['chunks_per_s_depth2']:.3f}); per file (medians of a traced depth-0 run): read "
+        f"{stage['read']:.1f} ms, preprocess {stage['preprocess']:.1f} ms, staging "
+        f"{stage['device_put']:.1f} ms; compute {stage['compute']:.1f} ms per chunk; at "
+        f"depth 2 {({k: round(v, 1) for k, v in stage2.items()})}; the phase took "
+        f"{batch['phase_s']:.1f} s")
+    return {"batch": batch, "correctness": results, "serial_n_vehicles": ref_veh,
+            "resume": {"first_complete": first.complete, "second_resumed": second.n_resumed},
+            "screen_equal": screen_equal}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement to this JSON file")
@@ -1320,6 +1584,7 @@ def main() -> int:
         # B1, B2 (both tiers), B3 (both tiers), B4
         results["times"]["kernels"] += dot_times.pop("kernels") + allpairs_kernels
         results["dot_times"] = dot_times
+        results["batch"] = phase_batch(section, results["device"]["nvidia_smi"])
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr, flush=True)
@@ -1351,6 +1616,7 @@ def main() -> int:
     log(json.dumps({"surface_wave_chunk": {
         "wall_ms_median": dt_["surface_wave_wall_ms_median"],
         "image_peak_rel_err": results["surface_wave_chunk"]["image_peak_rel_err"]}}))
+    log(json.dumps({"batch": results["batch"]["batch"]}))
     log(dev["nvidia_smi"])
     log(json.dumps({"kernels": results["times"]["kernels"]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev["kind"],

@@ -1,9 +1,10 @@
-"""Typed configuration tree of the per-chunk path.
+"""Typed configuration tree of the per-chunk path and the batch runtime.
 
-A copy of the main-path dataclasses of ``das_diff_veh_tpu/config.py``, field
-for field and default for default (tests/test_torch_config.py compares the
-two through ``dataclasses.asdict``).  The port keeps its own copy because the
-JAX package's ``__init__`` imports JAX.  Knobs the port does not implement
+A copy of the main-path dataclasses of ``das_diff_veh_tpu/config.py`` and of
+its ``ObsConfig``, field for field and default for default
+(tests/test_torch_config.py compares the two through ``dataclasses.asdict``).
+The port keeps its own copy because the JAX package's ``__init__`` imports
+JAX.  Knobs the port does not implement
 yet keep their field so a JAX configuration converts one to one
 (``convert.config_from_dict``); the functions that would read them raise.
 """
@@ -196,8 +197,20 @@ class ImagingConfig:
 
 @dataclass(frozen=True)
 class HealthConfig:
-    """Input-health sentinel knobs.  The port has no sentinel yet:
-    ``process_chunk`` raises when ``enabled`` is True."""
+    """Input-health sentinel knobs (``resilience.health``).
+
+    Masking an unhealthy channel changes output values, so ``health`` lives
+    in :class:`PipelineConfig` and takes part in the resume manifest's
+    config hash.  With ``enabled`` every chunk is screened once on its
+    device before the pipeline sees it: non-finite samples are zeroed,
+    channels with non-finite samples, a peak-to-peak span <=
+    ``flatline_var`` or (with ``clip_limit`` > 0) a clipped fraction >=
+    ``clip_fraction_max`` are masked (neighbor-imputed when ``impute``), and
+    a chunk with more than ``max_masked_fraction`` of its channels masked is
+    refused (``PoisonedChunkError``; the batch runtime quarantines it).
+    ``nan_fraction_max`` bounds the non-finite fraction at admission
+    (``resilience.health.admission_verdict``).  Disabled by default: the
+    sentinel then costs one attribute check and no device work."""
 
     enabled: bool = False
     flatline_var: float = 0.0
@@ -206,6 +219,63 @@ class HealthConfig:
     impute: bool = True
     max_masked_fraction: float = 0.5
     nan_fraction_max: float = 0.0
+
+
+@dataclass(frozen=True)
+class ObsConfig:
+    """Observability knobs of the batch runtime (``RuntimeConfig.obs``).
+
+    Pure execution knobs: none of them changes an output bit, and the
+    resume manifest's config hash excludes them.
+    """
+
+    enabled: bool = True
+    """Master switch for the batch runtime's instrumentation (registry
+    families, flight ring, sink, memory gauges).  False turns all of it
+    off."""
+
+    metrics_jsonl: Optional[str] = None
+    """Append periodic registry snapshots (one JSON line each) here during
+    batch runs.  None disables the sink."""
+
+    metrics_interval_s: float = 10.0
+    """Seconds between JSONL sink snapshots (a final line is always written
+    when the run ends)."""
+
+    flight_dir: Optional[str] = None
+    """Directory for flight-recorder dumps: the last ``flight_capacity``
+    per-chunk records as a JSON artifact on quarantine and SIGTERM
+    (``scripts/obs_report.py`` renders them).  None keeps the in-memory
+    ring but never writes."""
+
+    flight_capacity: int = 256
+    """Records retained in the flight-recorder ring."""
+
+    profile_dir: Optional[str] = None
+    """A profiler capture of ``profile_n_chunks`` steady-state chunks.  The
+    profiler window is not ported yet (ROADMAP item 13): the batch workflow
+    raises ``NotImplementedError`` when this is set."""
+
+    profile_start_chunk: int = 3
+    """Chunks to skip before the profiler window opens (warmup exclusion)."""
+
+    profile_n_chunks: int = 2
+    """Chunks captured inside the profiler window."""
+
+    hbm_sample_interval_s: float = 0.0
+    """Background device-memory sampling period [s].  0 registers the lazy
+    scrape-time gauges only; the sampler thread is not ported yet (ROADMAP
+    item 13) and a period > 0 raises ``NotImplementedError``."""
+
+    trace_flush_interval_s: float = 0.0
+    """Chrome-trace writer flush cadence.  0 (default) flushes every event
+    line — crash-durable, one syscall per span.  > 0 batches writes and
+    flushes at most every this many seconds."""
+
+    xla_events: bool = True
+    """The JAX package subscribes its registry to ``jax.monitoring``
+    compile events here.  The port installs nothing for it until ROADMAP
+    item 13; the knob changes no output bit."""
 
 
 @dataclass(frozen=True)

@@ -25,31 +25,26 @@ _SUB = {
     "gather": C.GatherConfig,
     "dispersion": C.DispersionConfig,
     "imaging": C.ImagingConfig,
+    "health": C.HealthConfig,
 }
 
 
 def config_from_dict(d: dict) -> C.PipelineConfig:
     """The port's configuration from ``dataclasses.asdict(jax_config)``.
 
-    Copies the main-path sub-configurations field for field (a field the port
-    lacks is a ``TypeError``, so drift shows).  Of the rest it reads only
-    ``chunk_pipeline`` and ``health.enabled`` and raises
-    ``NotImplementedError`` where they ask for what the port lacks; it ignores
-    ``bootstrap`` and ``fleet``, which the per-chunk path never reads."""
+    Copies the main-path sub-configurations field for field, ``health``
+    included (a field the port lacks is a ``TypeError``, so drift shows).
+    It raises ``NotImplementedError`` for ``chunk_pipeline="fused"``, which
+    the port lacks, and ignores ``bootstrap`` and ``fleet``, which the
+    per-chunk path never reads."""
     chunk_pipeline = d.get("chunk_pipeline", "staged")
     if chunk_pipeline != "staged":
         raise NotImplementedError(f"chunk_pipeline={chunk_pipeline!r} is not ported yet")
-    health = dict(d.get("health", {}))
-    if health.get("enabled", False):
-        raise NotImplementedError("the input-health sentinel (health.enabled) is not "
-                                  "ported yet")
     kw = {name: cls(**d[name]) for name, cls in _SUB.items() if name in d}
     if "tracking" in d:
         tr = dict(d["tracking"])
         tr["detect"] = C.DetectConfig(**tr["detect"])
         kw["tracking"] = C.TrackingConfig(**tr)
-    if health:
-        kw["health"] = C.HealthConfig(**health)
     if "max_windows" in d:
         kw["max_windows"] = int(d["max_windows"])
     return C.PipelineConfig(chunk_pipeline=chunk_pipeline, **kw)

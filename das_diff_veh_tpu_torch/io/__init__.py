@@ -1,1 +1,2 @@
-"""Data sources of the port (synthetic scenes)."""
+"""Data sources of the port: the npz / SEG-Y readers, the per-date directory
+dataset, artifact files and synthetic scenes."""

@@ -1,1 +1,2 @@
-"""Per-chunk pipeline of the port."""
+"""Pipeline of the port: the per-chunk path, the batch workflows over date
+folders (``workflow``) and their command line (``cli``)."""

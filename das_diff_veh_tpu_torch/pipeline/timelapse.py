@@ -29,6 +29,8 @@ from das_diff_veh_tpu_torch.ops.dispersion import fv_map_fk, fv_map_phase_shift
 from das_diff_veh_tpu_torch.pipeline.preprocess import (channels_to_distance,
                                                         preprocess_for_surface_waves,
                                                         preprocess_for_tracking)
+from das_diff_veh_tpu_torch.resilience.health import (ChannelHealth, PoisonedChunkError,
+                                                      screen_section)
 
 
 @dataclass
@@ -41,6 +43,8 @@ class ChunkResult:
     tracks: VehicleTracks
     batch: WindowBatch                # surface-wave-band windows
     qs_batch: Optional[WindowBatch]   # raw-band windows (with_qs=True only)
+    health: Optional[ChannelHealth] = None   # the screen's verdict when
+                                             # cfg.health.enabled, else None
 
 
 def resolve_chunk_metadata(section: DasSection, cfg: PipelineConfig,
@@ -123,6 +127,19 @@ def chunk_body(data: torch.Tensor, x_dist: np.ndarray, t: np.ndarray,
     return img, stack, n_windows, tracks, batch, qs_batch
 
 
+def screen_chunk(section: DasSection, cfg: PipelineConfig, tag: str):
+    """Input-health sentinel (``resilience.health``) on the section's
+    device.  Off by default: one attribute check and no device work (the
+    per-tag counter ``SCREENS_BY_TAG`` shows it).  Returns ``(section,
+    health-or-None)``; raises ``PoisonedChunkError`` on a failing verdict."""
+    if not cfg.health.enabled:
+        return section, None
+    section, health = screen_section(section, cfg.health, tag=tag)
+    if not health.ok(cfg.health):
+        raise PoisonedChunkError(health)
+    return section, health
+
+
 def process_chunk(section: DasSection, cfg: Optional[PipelineConfig] = None,
                   method: str = "xcorr", x_is_channels: bool = False,
                   with_qs: bool = False, device=None) -> ChunkResult:
@@ -134,23 +151,22 @@ def process_chunk(section: DasSection, cfg: Optional[PipelineConfig] = None,
 
     ``method``: ``"xcorr"`` (virtual shot gathers -> dispersion image of
     the stack) or ``"surface_wave"`` (muted direct dispersion image per
-    window, averaged over the valid windows).  Not ported yet, and raising
-    ``NotImplementedError``: ``cfg.chunk_pipeline="fused"`` and
-    ``cfg.health.enabled``."""
+    window, averaged over the valid windows).  With ``cfg.health.enabled``
+    the input-health sentinel screens the data on ``device`` first
+    (``ChunkResult.health``; ``PoisonedChunkError`` past
+    ``max_masked_fraction``).  Not ported yet, and raising
+    ``NotImplementedError``: ``cfg.chunk_pipeline="fused"``."""
     if method not in {"xcorr", "surface_wave"}:
         raise ValueError(f"method must be 'xcorr' or 'surface_wave', got {method!r}")
     cfg = cfg if cfg is not None else PipelineConfig()
     if cfg.chunk_pipeline != "staged":
         raise NotImplementedError(f"chunk_pipeline={cfg.chunk_pipeline!r} is not "
                                   f"ported yet; use 'staged'")
-    if cfg.health.enabled:
-        raise NotImplementedError("the input-health sentinel (health.enabled) is "
-                                  "not ported yet")
     dev = resolve_device(device)
+    section, health = screen_chunk(section.to(dev), cfg, tag="process_chunk")
     x_dist, t, dt = resolve_chunk_metadata(section, cfg, x_is_channels)
-    data = section.data.to(dev)
     img, vsg_stack, n_windows, tracks, batch, qs_batch = chunk_body(
-        data, x_dist, t, dt, cfg, method=method, with_qs=with_qs)
+        section.data, x_dist, t, dt, cfg, method=method, with_qs=with_qs)
     return ChunkResult(disp_image=img, vsg_stack=vsg_stack,
                        n_windows=int(n_windows), tracks=tracks,
-                       batch=batch, qs_batch=qs_batch)
+                       batch=batch, qs_batch=qs_batch, health=health)

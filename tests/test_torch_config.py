@@ -1,4 +1,5 @@
-"""The port's configuration mirrors the JAX package's field for field, and
+"""The port's configuration mirrors the JAX package's field for field (the
+per-chunk path's, ``ObsConfig`` and ``RuntimeConfig``), and
 ``convert.config_from_dict`` carries a JAX configuration across."""
 
 import dataclasses
@@ -6,13 +7,15 @@ import dataclasses
 import pytest
 
 from das_diff_veh_tpu import config as J
+from das_diff_veh_tpu.runtime import RuntimeConfig as JRuntime
 from das_diff_veh_tpu_torch import config as P
 from das_diff_veh_tpu_torch.convert import config_from_dict
+from das_diff_veh_tpu_torch.runtime import RuntimeConfig as PRuntime
 
 MIRRORED = ["InterrogatorConfig", "DetectConfig", "TrackingConfig", "TrackQCConfig",
             "TrackingPreprocessConfig", "SurfaceWavePreprocessConfig", "WindowConfig",
             "MuteConfig", "GatherConfig", "DispersionConfig", "ImagingConfig",
-            "HealthConfig"]
+            "HealthConfig", "ObsConfig"]
 # sub-configurations the per-chunk path never reads
 NOT_PORTED = {"bootstrap", "fleet"}
 
@@ -30,6 +33,14 @@ def test_pipeline_config_matches_without_unported_parts():
     assert P.DispersionConfig().n_vels == J.DispersionConfig().n_vels
 
 
+def test_runtime_config_matches_field_for_field():
+    assert dataclasses.asdict(PRuntime()) == dataclasses.asdict(JRuntime())
+    kw = dict(prefetch_depth=4, max_retries=3, retry_quarantined=True, state_every=2,
+              trace_path="t.jsonl")
+    assert dataclasses.asdict(PRuntime(**kw, obs=P.ObsConfig(flight_dir="f"))) == \
+        dataclasses.asdict(JRuntime(**kw, obs=J.ObsConfig(flight_dir="f")))
+
+
 def test_config_from_dict_round_trip():
     jcfg = J.PipelineConfig().replace(
         imaging=J.ImagingConfig(x0=400.0),
@@ -45,6 +56,11 @@ def test_config_from_dict_refuses_unported_modes():
     d = dataclasses.asdict(J.PipelineConfig().replace(chunk_pipeline="fused"))
     with pytest.raises(NotImplementedError, match="chunk_pipeline"):
         config_from_dict(d)
-    d = dataclasses.asdict(J.PipelineConfig().replace(health=J.HealthConfig(enabled=True)))
-    with pytest.raises(NotImplementedError, match="health"):
-        config_from_dict(d)
+
+
+def test_config_from_dict_converts_the_health_sentinel():
+    jcfg = J.PipelineConfig().replace(health=J.HealthConfig(enabled=True, clip_limit=4.0,
+                                                             impute=False))
+    pcfg = config_from_dict(dataclasses.asdict(jcfg))
+    assert pcfg.health == P.HealthConfig(enabled=True, clip_limit=4.0, impute=False)
+    assert dataclasses.asdict(pcfg.health) == dataclasses.asdict(jcfg.health)

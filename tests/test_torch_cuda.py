@@ -389,3 +389,66 @@ def test_all_pairs_peak_on_card(card):
     cpu = ap.xcorr_all_pairs_peak(rec.cpu(), 128, device="cpu", **kw)
     # cuFFT and pocketfft round float32 differently (~1e-7 peak-relative)
     assert float((got.cpu() - cpu).abs().max() / cpu.abs().max()) <= 1e-5
+
+
+# ---- the batch loop: the health screen and run_directory on the card ----
+
+def test_health_screen_on_card_equals_cpu(card):
+    """Every operation of the screen is exact, so the card's screen of the
+    float32 data is the CPU's bit for bit: the sanitised data, the mask and
+    every ChannelHealth field."""
+    import numpy as np
+
+    from das_diff_veh_tpu_torch.config import HealthConfig
+    from das_diff_veh_tpu_torch.resilience.health import screen_arrays
+
+    d = np.random.default_rng(0).standard_normal((140, 3000)).astype(np.float32)
+    d[[3, 4], 100:400] = np.nan
+    d[7, 9] = np.inf
+    d[9] = 0.5
+    d[20, ::3] = 6.0
+    d[139] = 0.0
+    for cfg in (HealthConfig(enabled=True),
+                HealthConfig(enabled=True, clip_limit=5.0, clip_fraction_max=1 / 3)):
+        got_data, got = screen_arrays(torch.from_numpy(d).to(card), cfg, tag="card_test")
+        want_data, want = screen_arrays(torch.from_numpy(d), cfg, tag="card_test")
+        assert got_data.is_cuda and got_data.dtype == torch.float32
+        assert torch.equal(got_data.cpu(), want_data)
+        assert np.array_equal(got.healthy, want.healthy)
+        assert got.summary() == want.summary() and got.nan_fraction == want.nan_fraction
+
+
+def test_run_directory_on_card_bit_equal_at_depth_0_and_2(card, tmp_path):
+    """Three files through run_directory on the card: the accumulated image
+    is the same bits with the loader inline and two chunks staged ahead (a
+    staging race would show as a changed image), with 2 launches of B1 per
+    chunk."""
+    import numpy as np
+
+    from das_diff_veh_tpu_torch.config import ImagingConfig, PipelineConfig
+    from das_diff_veh_tpu_torch.io.readers import DirectoryDataset, save_section_npz
+    from das_diff_veh_tpu_torch.io.synthetic import SceneConfig, synthesize_section
+    from das_diff_veh_tpu_torch.pipeline.workflow import run_directory
+    from das_diff_veh_tpu_torch.runtime import RuntimeConfig
+
+    day = tmp_path / "20230301"
+    day.mkdir()
+    for i, seed in enumerate((11, 12, 13)):
+        sec, _ = synthesize_section(SceneConfig(nch=100, duration=120.0, n_vehicles=4,
+                                                seed=seed, speed_range=(12.0, 18.0)))
+        save_section_npz(str(day / f"20230301_{i:02d}0000.npz"), sec)
+    cfg = PipelineConfig().replace(imaging=ImagingConfig(x0=400.0))
+    runs = {}
+    for depth in (0, 2, 0):
+        ds = DirectoryDataset("20230301", root=str(tmp_path), ch1=None, ch2=None,
+                              smoothing=False, rescale_after=None)
+        tg.launches = 0
+        res = run_directory(ds, cfg, x_is_channels=False,
+                            runtime=RuntimeConfig(prefetch_depth=depth), device=card)
+        assert tg.launches == 2 * 3 and not res.quarantined
+        assert res.n_vehicles > 0 and res.avg_image.dtype == np.float32
+        if depth in runs:
+            assert np.array_equal(res.avg_image, runs[depth].avg_image)
+        runs[depth] = res
+    assert np.array_equal(runs[0].avg_image, runs[2].avg_image)
+    assert runs[0].n_vehicles == runs[2].n_vehicles

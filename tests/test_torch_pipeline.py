@@ -109,8 +109,11 @@ def test_entry_points_need_a_card_unless_cpu_is_asked_for():
 
 
 def test_unported_options_raise():
-    """The fused chunk and the health sentinel are still to port; an unknown
-    method is refused."""
+    """The fused chunk is still to port; an unknown method is refused.  The
+    health sentinel is ported: with it on, an all-flat chunk is refused as
+    poisoned instead of raising NotImplementedError."""
+    from das_diff_veh_tpu_torch.resilience.health import PoisonedChunkError
+
     x, t = np.arange(4) * 8.16, np.arange(8) * 0.004
     sec = section_from_numpy(np.zeros((4, 8)), x, t, device="cpu")
     with pytest.raises(ValueError, match="surface_wave"):
@@ -119,7 +122,7 @@ def test_unported_options_raise():
         process_chunk(sec, PipelineConfig(chunk_pipeline="fused"), device="cpu")
     cfg = PipelineConfig()
     cfg = cfg.replace(health=dataclasses.replace(cfg.health, enabled=True))
-    with pytest.raises(NotImplementedError, match="health"):
+    with pytest.raises(PoisonedChunkError, match="4/4 channels masked"):
         process_chunk(sec, cfg, device="cpu")
 
 

@@ -1,6 +1,6 @@
 """Stage-by-stage parity of the port against the JAX package on the CPU, one
 test (or parametrised family) per module: preprocess, tracking, windows,
-dispersion and virtual shot gathers.  Inputs are made with numpy from a seed
+dispersion, virtual shot gathers and trace quality control.  Inputs are made with numpy from a seed
 and handed to both packages; tolerances are the repository's oracle bar
 (1e-7 peak-relative) and exact equality for masks and pure copies."""
 
@@ -173,3 +173,36 @@ def test_build_gather_matches_jax(other_side, pivot_frac):
     assert _peak_rel(both[0].numpy(), got.numpy()) <= 1e-12
     stacked = PV.stack_gathers(both, torch.tensor([True, False]))
     assert torch.equal(stacked, both[0])
+
+
+@pytest.mark.parametrize("empty, bad_row", [(False, 0), (False, 4), (False, 5), (True, 2),
+                                            (False, None)])
+def test_qc_impute_first_noisy_matches_jax(empty, bad_row):
+    """The reference's single-channel imputation (contract
+    tests/test_dsp.py:166): the edge rule copies the neighbour, an interior
+    channel takes the neighbour sum, no match imputes channel 0."""
+    from das_diff_veh_tpu.ops.qc import impute_first_noisy as jax_impute
+    from das_diff_veh_tpu_torch.ops.qc import impute_first_noisy
+
+    data = np.random.default_rng(11).standard_normal((6, 30))
+    if bad_row is not None:
+        data[bad_row] = 0.01 if empty else 50.0
+    threshold = 1.0 if empty else 5.0
+    got = impute_first_noisy(torch.from_numpy(data), threshold, empty=empty).numpy()
+    np.testing.assert_array_equal(got, np.asarray(jax_impute(jnp.asarray(data), threshold,
+                                                             empty=empty)))
+    if bad_row == 4:
+        np.testing.assert_array_equal(got[4], data[3] + data[5])
+
+
+def test_qc_kill_loud_channels_matches_jax():
+    from das_diff_veh_tpu.ops.qc import kill_loud_channels as jax_kill
+    from das_diff_veh_tpu_torch.ops.qc import kill_loud_channels
+
+    data = np.random.default_rng(12).standard_normal((8, 40))
+    data[[2, 5]] *= 30.0
+    data[6, :21] = 10.5                   # median of an even count at the threshold
+    for nt in (40, 39):
+        got = kill_loud_channels(torch.from_numpy(data[:, :nt]), 10.0).numpy()
+        np.testing.assert_array_equal(got, np.asarray(jax_kill(jnp.asarray(data[:, :nt]), 10.0)))
+    assert not got[2].any() and got[0].any()
