@@ -68,10 +68,29 @@ Phases, each of which must pass:
    of B1 per computed chunk; the health screen on the card ``torch.equal``
    to the CPU's; the trace's loader spans overlapping compute at depth 2;
    then chunks/s at depths 0 and 2 (median of 3 runs each, the reader's
-   savgol pre-smooth on) and the host, staging and compute ms per file.
+   savgol pre-smooth on) and the host, staging and compute ms per file; all
+   again with ``chunk_pipeline="fused"`` (the program cache emptied before
+   each correctness run, so its first chunk captures beside the loader at
+   depth 2), held to the same serial staged loop, its files/s in turns with
+   the staged runs;
+15. fused chunk: ``process_chunk`` with ``chunk_pipeline="fused"`` (one CUDA
+   graph per geometry, ``pipeline/fused.py``) for the default, the dot (f32
+   and bf16) and the surface_wave chunks at full size: every field
+   ``torch.equal`` to the staged chunk (a continuous field that a library
+   rounds otherwise on the capture stream is named and held within 1e-7),
+   also on other data of the geometry; one program and one capture on the
+   first call, none in 20 warm calls (20 dispatches); a zero-signal chunk
+   through the cached program (``n_windows`` 0, finite image); no aliasing
+   between results; the launches a replay recorded (B1 2, or B2 2) and the
+   kernel names a profiled replay lists; fused and staged walls in turns
+   (median, p90), device-busy share and kernels per chunk of one profiled
+   replay and one staged chunk, warm-up and capture time, the graph's pool;
+   the body under ``set_sync_debug_mode("error")``; ``clear_programs()``
+   frees the device memory.
 
 The line before the last is a JSON object ``{"kernels": [...]}``, after
-``{"batch": {...}}`` and the card's name and power limit; the last
+``{"batch": {...}}``, ``{"fused": {...}}`` and the card's name and power
+limit; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the rest of the repository beside it, the script exits non-zero and prints
 no result.
@@ -1288,6 +1307,210 @@ def phase_dot_times(dot: dict, sw: dict, profile: bool = False) -> dict:
             "profile": profiles}
 
 
+# The fused chunk (phase 15): each scene's staged and fused configurations,
+# method, and the launches a replay must hold.  FUSED_FIELDS are held
+# torch.equal between fused and staged; a continuous field that a library
+# call rounds otherwise on the capture stream is named and held within
+# FUSED_BAR peak-relative (the bar JAX's fused path discloses,
+# tests/test_fused_pipeline.py:1-25); masks and counts stay exact.
+FUSED_WARM_CALLS = 20
+FUSED_BAR = 1e-7
+FUSED_CONTINUOUS = ("disp_image", "vsg_stack", "batch.data", "tracks.t_idx")
+FUSED_KERNEL_NAMES = {"traj_gather": "traj_gather_pack_kernel", "traj_dot": "traj_dot_kernel"}
+
+
+def _fused_scenes():
+    from das_diff_veh_tpu_torch.config import PipelineConfig
+
+    return {"default": (PipelineConfig(), "xcorr", {"traj_gather": 2, "traj_dot": 0}),
+            "dot_f32": (_dot_cfg("f32"), "xcorr", {"traj_gather": 0, "traj_dot": 2}),
+            "dot_bf16": (_dot_cfg("bf16"), "xcorr", {"traj_gather": 0, "traj_dot": 2}),
+            "surface_wave": (PipelineConfig(), "surface_wave",
+                             {"traj_gather": 0, "traj_dot": 0})}
+
+
+def _chunk_fields(res) -> dict:
+    """Name -> tensor of every field of a chunk result."""
+    out = {"n_windows": torch.as_tensor(res.n_windows), "disp_image": res.disp_image}
+    if res.vsg_stack is not None:
+        out["vsg_stack"] = res.vsg_stack
+    for obj in ("tracks", "batch"):
+        for f in dataclasses.fields(getattr(res, obj)):
+            out[f"{obj}.{f.name}"] = getattr(getattr(res, obj), f.name)
+    return out
+
+
+def _fused_vs_staged(fused, staged, label: str) -> dict:
+    """Field name -> peak-relative gap of every field that is not the same
+    bits; raises past ``FUSED_BAR`` or on any other field."""
+    f, s = _chunk_fields(fused), _chunk_fields(staged)
+    if f.keys() != s.keys():
+        raise AssertionError(f"{label}: fused fields {sorted(f)} vs staged {sorted(s)}")
+    gaps = {}
+    for name in f:
+        a, b = f[name].cpu(), s[name].cpu()
+        if a.dtype == b.dtype and a.shape == b.shape and same_bits(a, b):
+            continue
+        gap = peak_rel(a.nan_to_num(), b.nan_to_num()) if a.is_floating_point() else float("inf")
+        gaps[name] = gap
+        if name not in FUSED_CONTINUOUS or not gap <= FUSED_BAR \
+                or not torch.equal(torch.isnan(a), torch.isnan(b)):
+            raise AssertionError(f"{label}: fused {name} differs from staged (peak-rel {gap:.3e})")
+    return gaps
+
+
+def _kernel_names(fn) -> tuple:
+    """``(busy ms, wall ms, kernels and copies, names)`` of one call of ``fn``
+    under the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in rows) / 1e3
+    return busy, wall_ms, sum(e.count for e in rows), {e.key: e.count for e in rows}
+
+
+def phase_fused(section, nvidia_smi: str) -> dict:
+    """``process_chunk(..., cfg.replace(chunk_pipeline="fused"))`` on the card
+    for the default, dot (f32, bf16) and surface_wave chunks at full size:
+    one capture per geometry, 0 in 20 warm calls; every field equal to the
+    staged chunk; a zero-signal chunk through the cached program; no
+    aliasing between results; the launches a replay records and the kernel
+    names a profiled replay lists; fused and staged walls in turns, the
+    device-busy share, the capture time and the graph's pool."""
+    from das_diff_veh_tpu_torch.core import constants
+    from das_diff_veh_tpu_torch.pipeline import fused as F
+    from das_diff_veh_tpu_torch.pipeline.timelapse import process_chunk, resolve_chunk_metadata
+
+    sec32 = section.to("cuda", torch.float32)
+    # another chunk of the geometry: the same record 30 s later (vehicles move)
+    other = dataclasses.replace(sec32, data=torch.roll(sec32.data, 7500, dims=1))
+    zero = dataclasses.replace(sec32, data=torch.zeros_like(sec32.data))
+    F.clear_programs()
+    torch.cuda.synchronize()
+    held0 = torch.cuda.memory_allocated()
+    out = {}
+    for label, (cfg, method, per_replay) in _fused_scenes().items():
+        fcfg = cfg.replace(chunk_pipeline="fused")
+        run = lambda sec, c=cfg: process_chunk(sec, c, method=method, device="cuda")
+        frun = lambda sec, c=fcfg: process_chunk(sec, c, method=method, device="cuda")
+        staged = run(sec32)
+        caps, progs, reps = F.n_captures(), F.n_programs(), F.n_replays()
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        first = frun(sec32)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        counts = read_counts()
+        prog = F.programs()[-1]
+        if (F.n_captures(), F.n_programs(), F.n_replays()) != (caps + 1, progs + 1, reps + 1):
+            raise AssertionError(f"fused {label}: the first call must capture one program")
+        lpr = prog.launches_per_replay
+        if {k: lpr.get(k, 0) for k in per_replay} != per_replay:
+            raise AssertionError(f"fused {label}: launches per replay {lpr}, expected "
+                                 f"{per_replay}")
+        gaps = _fused_vs_staged(first, staged, f"fused {label}")
+        kept = {k: v.clone() for k, v in _chunk_fields(first).items()}
+        second = frun(other)
+        gaps_other = _fused_vs_staged(second, run(other), f"fused {label} (other data)")
+        aliased = [k for k, v in _chunk_fields(first).items() if not same_bits(v, kept[k])]
+        if aliased:
+            raise AssertionError(f"fused {label}: a later call overwrote {aliased}")
+        z = frun(zero)
+        z_ok = int(z.n_windows) == 0 and bool(torch.isfinite(z.disp_image).all())
+        if not z_ok or F.n_programs() != progs + 1:
+            raise AssertionError(f"fused {label}: zero-signal chunk n_windows {int(z.n_windows)}, "
+                                 f"programs {F.n_programs() - progs}")
+        caps, progs, disp = F.n_captures(), F.n_programs(), F.n_dispatches("process_chunk")
+        walls, swalls = [], []
+        for _ in range(FUSED_WARM_CALLS):
+            for fn, acc in ((frun, walls), (run, swalls)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(sec32)
+                torch.cuda.synchronize()
+                acc.append((time.perf_counter() - t0) * 1e3)
+        if (F.n_captures(), F.n_programs()) != (caps, progs) or \
+                F.n_dispatches("process_chunk") != disp + FUSED_WARM_CALLS:
+            raise AssertionError(f"fused {label}: warm calls captured "
+                                 f"{F.n_captures() - caps}, built {F.n_programs() - progs}")
+        busy, pwall, n_ops, names = _kernel_names(lambda: frun(sec32))
+        seen = {k: sum(c for n, c in names.items() if FUSED_KERNEL_NAMES[k] in n)
+                for k in per_replay}
+        if seen != per_replay:
+            raise AssertionError(f"fused {label}: the profiled replay lists {seen} of the "
+                                 f"kernels, expected {per_replay}")
+        sbusy, swall, s_ops, _ = _kernel_names(lambda: run(sec32))
+        pool = prog.pool_bytes()
+        res = {"first_call_s": first_s, "warmup_s": prog.warmup_s, "capture_s": prog.capture_s,
+               "launches_first_call": counts, "launches_per_replay": lpr,
+               "n_windows": int(first.n_windows), "gaps_to_staged": gaps,
+               "gaps_to_staged_other_data": gaps_other,
+               "fused_wall_ms": walls, "staged_wall_ms": swalls,
+               "fused_wall_ms_median": float(np.median(walls)),
+               "fused_wall_ms_p90": float(np.percentile(walls, 90)),
+               "staged_wall_ms_median": float(np.median(swalls)),
+               "staged_wall_ms_p90": float(np.percentile(swalls, 90)),
+               "profiled_replay": {"wall_ms": pwall, "device_busy_ms": busy,
+                                   "busy_share": busy / pwall, "kernels_and_copies": n_ops,
+                                   "kernel_launches_seen": seen},
+               "profiled_staged": {"wall_ms": swall, "device_busy_ms": sbusy,
+                                   "busy_share": sbusy / swall, "kernels_and_copies": s_ops},
+               "pool_bytes": pool,
+               "static_in_bytes": prog.static_in.numel() * prog.static_in.element_size()}
+        log(f"fused {label} ({nvidia_smi}): first call {first_s:.3f} s (warm-up "
+            f"{prog.warmup_s:.3f}, capture {prog.capture_s:.3f}), launches in it {counts}, per "
+            f"replay {lpr}; n_windows {res['n_windows']}; fields not bit-equal to staged "
+            f"{gaps or 'none'} (other data {gaps_other or 'none'}); zero-signal chunk hit the "
+            f"cache, n_windows 0; warm walls ms fused median {res['fused_wall_ms_median']:.3f} "
+            f"p90 {res['fused_wall_ms_p90']:.3f}, staged median "
+            f"{res['staged_wall_ms_median']:.3f} p90 {res['staged_wall_ms_p90']:.3f} (in "
+            f"turns, {FUSED_WARM_CALLS} each); profiled replay: busy {busy:.3f} of {pwall:.3f} "
+            f"ms ({100 * busy / pwall:.1f} %), {n_ops} kernels and copies, {seen}; staged "
+            f"profiled: busy {sbusy:.3f} of {swall:.3f} ms ({100 * sbusy / swall:.1f} %), "
+            f"{s_ops}; pool {res['pool_bytes']} B")
+        out[label] = res
+        del prog                        # clear_programs() below must free its graph
+    # the body at full size does not synchronise (the constants are cached)
+    cfg, method, _ = _fused_scenes()["default"]
+    x, t, _ = resolve_chunk_metadata(sec32, cfg)
+    body = F._program(sec32.data.shape, sec32.data.dtype, sec32.data.device, x, t,
+                      cfg.replace(chunk_pipeline="fused"), method, False).body
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        body(sec32.data)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    del body
+    torch.cuda.synchronize()
+    held, reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    const_bytes = constants.nbytes("cuda:0")
+    pools = sum(r["pool_bytes"] for r in out.values())
+    F.clear_programs()
+    torch.cuda.synchronize()
+    freed = held - torch.cuda.memory_allocated()
+    released = reserved - torch.cuda.memory_reserved()
+    log(f"fused programs: {len(out)} geometries held {held - held0} B allocated (static "
+        f"buffers, outputs, {const_bytes} B of cached constants) and {pools} B of graph "
+        f"pools; clear_programs() freed {freed} B allocated and gave back {released} B of reserved "
+        f"device memory; the body synchronises nowhere (set_sync_debug_mode('error'))")
+    if freed <= 0 or released < pools:
+        raise AssertionError(f"clear_programs() freed {freed} B and released {released} B of "
+                             f"the pools' {pools} B")
+    return {"scenes": out, "allocated_bytes_held": held - held0, "pool_bytes_total": pools,
+            "constants_bytes": const_bytes, "freed_bytes": freed, "released_bytes": released,
+            "device": nvidia_smi}
+
+
 # The batch phase: 8 files of one date at 2-minute spacing, each the chunk
 # scene at full size (seeds 2-9; the first is the main path's scene).  File 3
 # gets 3 NaN channels and a constant one (degraded), file 5 80 NaN channels
@@ -1377,7 +1600,10 @@ def phase_batch(section, nvidia_smi: str) -> dict:
     prefetch at depths 0 and 2 against a serial loop of ``process_chunk``,
     quarantine of the planted faults, resume, the health screen on the card
     against the CPU, B1's launches, the loader's spans against compute, and
-    the batch times."""
+    the batch times; again with ``chunk_pipeline="fused"`` (the program cache
+    emptied before each run, so its first chunk captures beside the loader),
+    held to the same serial staged loop, with its files/s beside the
+    staged ones."""
     import os
     import tempfile
 
@@ -1385,12 +1611,14 @@ def phase_batch(section, nvidia_smi: str) -> dict:
 
     from das_diff_veh_tpu_torch.config import HealthConfig, PipelineConfig
     from das_diff_veh_tpu_torch.io.readers import DirectoryDataset
+    from das_diff_veh_tpu_torch.pipeline import fused as F
     from das_diff_veh_tpu_torch.pipeline.timelapse import process_chunk
     from das_diff_veh_tpu_torch.pipeline.workflow import run_directory
     from das_diff_veh_tpu_torch.resilience.health import screen_arrays
     from das_diff_veh_tpu_torch.runtime import RuntimeConfig, load_trace
 
     cfg = PipelineConfig().replace(health=HealthConfig(enabled=True))
+    cfgs = {"staged": cfg, "fused": cfg.replace(chunk_pipeline="fused")}
     computed = [i for i in range(len(BATCH_SEEDS)) if i not in (BATCH_POISONED, BATCH_GARBAGE)]
     want_quarantine = {_batch_file(BATCH_GARBAGE): "load", _batch_file(BATCH_POISONED): "compute"}
     chunk_launches = {**NO_LAUNCHES, "traj_gather": 2 * len(computed)}
@@ -1406,11 +1634,11 @@ def phase_batch(section, nvidia_smi: str) -> dict:
             return DirectoryDataset(BATCH_DATE, root=root, ch1=None, ch2=None,
                                     smoothing=smoothing, rescale_after=None)
 
-        def run(depth: int, smoothing: bool = False, trace=None, **kw):
+        def run(depth: int, smoothing: bool = False, trace=None, pipeline="staged", **kw):
             runtime = RuntimeConfig(prefetch_depth=depth, retry_backoff_s=0.0,
                                     trace_path=trace)
             reset_counts()
-            res = run_directory(dataset(smoothing), cfg, x_is_channels=False,
+            res = run_directory(dataset(smoothing), cfgs[pipeline], x_is_channels=False,
                                 runtime=runtime, device="cuda", **kw)
             counts = read_counts()
             got_q = {q.key: q.stage for q in res.quarantined}
@@ -1474,6 +1702,35 @@ def phase_batch(section, nvidia_smi: str) -> dict:
                 or not resumed_equal:
             raise AssertionError("batch resume: the resumed run differs from the whole one")
 
+        # the fused chunk: each run starts with an empty program cache, so its
+        # first computed chunk warms up and captures (at depth 2 beside the
+        # loader); B1 launches in the warm-up and the capture only
+        fused = {}
+        for depth in (0, 2, "resume"):
+            F.clear_programs()
+            caps, reps = F.n_captures(), F.n_replays()
+            if depth == "resume":
+                out_f = os.path.join(root, "out_fused")
+                r1, _, _ = run(2, out_dir=out_f, max_chunks=3, pipeline="fused")
+                res, counts, got_q = run(2, out_dir=out_f, pipeline="fused")
+                ok = (not r1.complete and res.n_resumed == 3 and res.complete
+                      and F.n_replays() - reps == len(computed))
+            else:
+                res, counts, got_q = run(depth, pipeline="fused")
+                ok = F.n_replays() - reps == len(computed)
+            equal = res.avg_image is not None and bool(np.array_equal(res.avg_image, ref))
+            log(f"batch fused {depth}: avg_image equal to the serial staged loop {equal}, "
+                f"vehicles {res.n_vehicles}, degraded {res.n_degraded}, quarantined {got_q}, "
+                f"captures {F.n_captures() - caps}, replays {F.n_replays() - reps}, launches "
+                f"{counts}")
+            # the resumed half replays the program its first half captured
+            want = NO_LAUNCHES if depth == "resume" else {**NO_LAUNCHES, "traj_gather": 4}
+            if not (equal and ok and got_q == want_quarantine and res.n_degraded == 1
+                    and F.n_captures() - caps == 1 and counts == want):
+                raise AssertionError(f"batch fused {depth}: differs from the staged batch")
+            fused[str(depth)] = {"equal": equal, "n_vehicles": res.n_vehicles,
+                                 "replays": F.n_replays() - reps}
+
         data32 = ds[BATCH_DEGRADED].data.to(torch.float32)
         card_data, card_h = screen_arrays(data32.cuda(), cfg.health, tag="batch_check")
         cpu_data, cpu_h = screen_arrays(data32, cfg.health, tag="batch_check")
@@ -1491,52 +1748,65 @@ def phase_batch(section, nvidia_smi: str) -> dict:
         # and one traced run at each depth for the time by stage
         gain = float(savgol_coeffs(21, 15).sum())
         run(2, smoothing=True)
-        times, traces, smooth = {0: [], 2: []}, {}, {}
+        run(2, smoothing=True, pipeline="fused")      # the smoothed files' program
+        kinds = [(pl, d) for pl in ("staged", "fused") for d in (0, 2)]
+        times, traces, smooth = {k: [] for k in kinds}, {}, {}
         for rep in range(BATCH_TIMED_RUNS + 1):
-            for depth in (0, 2):
-                trace = os.path.join(root, f"timed_{depth}.jsonl") if rep == 0 else None
-                res, counts, got_q = run(depth, smoothing=True, trace=trace)
+            for pl, depth in kinds:
+                trace = os.path.join(root, f"timed_{pl}_{depth}.jsonl") if rep == 0 else None
+                res, counts, got_q = run(depth, smoothing=True, trace=trace, pipeline=pl)
                 if trace is None:
-                    times[depth].append(res.chunks_per_s)
+                    times[pl, depth].append(res.chunks_per_s)
                 else:
-                    traces[depth] = load_trace(trace)
-                smooth.setdefault(depth, (res.avg_image, res.n_vehicles, got_q))
-                if counts != chunk_launches or got_q != want_quarantine:
-                    raise AssertionError(f"batch timed run: launches {counts}, quarantined "
-                                         f"{got_q}")
-        a0, a2 = smooth[0], smooth[2]
-        same = a0[1] == a2[1] and a0[2] == a2[2] and (
-            (a0[0] is None and a2[0] is None) or
-            (a0[0] is not None and a2[0] is not None and np.array_equal(a0[0], a2[0])))
-        if not same:
-            raise AssertionError("batch timed runs: depth 0 and depth 2 differ")
-    stage = {name: _stage_ms(traces[0], name)
-             for name in ("read", "preprocess", "device_put", "compute")}
+                    traces[pl, depth] = load_trace(trace)
+                smooth.setdefault((pl, depth), (res.avg_image, res.n_vehicles, got_q))
+                want = chunk_launches if pl == "staged" else NO_LAUNCHES
+                if counts != want or got_q != want_quarantine:
+                    raise AssertionError(f"batch timed run ({pl}): launches {counts}, "
+                                         f"quarantined {got_q}")
+        a0 = smooth["staged", 0]
+        for k in kinds[1:]:
+            a2 = smooth[k]
+            same = a0[1] == a2[1] and a0[2] == a2[2] and (
+                (a0[0] is None and a2[0] is None) or
+                (a0[0] is not None and a2[0] is not None and np.array_equal(a0[0], a2[0])))
+            if not same:
+                raise AssertionError(f"batch timed runs: {k} differs from staged depth 0")
+    names = ("read", "preprocess", "device_put", "compute")
+    stage = {name: _stage_ms(traces["staged", 0], name) for name in names}
     # the same stages while the loader and the compute thread overlap
-    stage2 = {name: _stage_ms(traces[2], name)
-              for name in ("read", "preprocess", "device_put", "compute")}
+    stage2 = {name: _stage_ms(traces["staged", 2], name) for name in names}
+    fstage = {d: {name: _stage_ms(traces["fused", d], name) for name in names} for d in (0, 2)}
     batch = {"device": nvidia_smi, "files": len(BATCH_SEEDS), "computed_chunks": len(computed),
-             "chunks_per_s_depth0": float(np.median(times[0])),
-             "chunks_per_s_depth2": float(np.median(times[2])),
-             "chunks_per_s_runs": {str(d): times[d] for d in times},
+             "chunks_per_s_depth0": float(np.median(times["staged", 0])),
+             "chunks_per_s_depth2": float(np.median(times["staged", 2])),
+             "chunks_per_s_runs": {f"{pl}_{d}": times[pl, d] for pl, d in times},
+             "fused_chunks_per_s_depth0": float(np.median(times["fused", 0])),
+             "fused_chunks_per_s_depth2": float(np.median(times["fused", 2])),
+             "fused_stage_ms": {str(d): fstage[d] for d in fstage},
              "read_preprocess_ms_per_file": stage["read"] + stage["preprocess"],
              "read_ms_per_file": stage["read"], "preprocess_ms_per_file": stage["preprocess"],
              "device_staging_ms_per_file": stage["device_put"],
              "compute_ms_per_chunk": stage["compute"],
              "depth2_stage_ms": stage2,
-             "loader_compute_overlaps_depth2": _overlaps(traces[2]),
+             "loader_compute_overlaps_depth2": _overlaps(traces["staged", 2]),
              "smoothed_n_vehicles": a0[1], "savgol_21_15_dc_gain": gain,
              "launches_per_run": chunk_launches["traj_gather"], "folder_s": folder_s,
              "phase_s": time.perf_counter() - t_phase}
     log(f"batch times ({nvidia_smi}; savgol pre-smooth on, its (21, 15) DC gain {gain:.3e}, "
-        f"{a0[1]} vehicles; untraced runs): chunks/s depth 0 {times[0]} (median "
-        f"{batch['chunks_per_s_depth0']:.3f}), depth 2 {times[2]} (median "
-        f"{batch['chunks_per_s_depth2']:.3f}); per file (medians of a traced depth-0 run): read "
-        f"{stage['read']:.1f} ms, preprocess {stage['preprocess']:.1f} ms, staging "
-        f"{stage['device_put']:.1f} ms; compute {stage['compute']:.1f} ms per chunk; at "
-        f"depth 2 {({k: round(v, 1) for k, v in stage2.items()})}; the phase took "
-        f"{batch['phase_s']:.1f} s")
+        f"{a0[1]} vehicles; untraced runs, staged and fused in turns): chunks/s staged depth 0 "
+        f"{times['staged', 0]} (median {batch['chunks_per_s_depth0']:.3f}), depth 2 "
+        f"{times['staged', 2]} (median {batch['chunks_per_s_depth2']:.3f}); fused depth 0 "
+        f"{times['fused', 0]} (median {batch['fused_chunks_per_s_depth0']:.3f}), depth 2 "
+        f"{times['fused', 2]} (median {batch['fused_chunks_per_s_depth2']:.3f}); per file "
+        f"(medians of a traced depth-0 run): read {stage['read']:.1f} ms, preprocess "
+        f"{stage['preprocess']:.1f} ms, staging {stage['device_put']:.1f} ms; compute "
+        f"{stage['compute']:.1f} ms per chunk; at depth 2 "
+        f"{({k: round(v, 1) for k, v in stage2.items()})}; fused "
+        f"{({d: {k: round(v, 1) for k, v in fstage[d].items()} for d in fstage})}; the phase "
+        f"took {batch['phase_s']:.1f} s")
     return {"batch": batch, "correctness": results, "serial_n_vehicles": ref_veh,
+            "fused_correctness": fused,
             "resume": {"first_complete": first.complete, "second_resumed": second.n_resumed},
             "screen_equal": screen_equal}
 
@@ -1585,6 +1855,7 @@ def main() -> int:
         results["times"]["kernels"] += dot_times.pop("kernels") + allpairs_kernels
         results["dot_times"] = dot_times
         results["batch"] = phase_batch(section, results["device"]["nvidia_smi"])
+        results["fused"] = phase_fused(section, results["device"]["nvidia_smi"])
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr, flush=True)
@@ -1617,6 +1888,20 @@ def main() -> int:
         "wall_ms_median": dt_["surface_wave_wall_ms_median"],
         "image_peak_rel_err": results["surface_wave_chunk"]["image_peak_rel_err"]}}))
     log(json.dumps({"batch": results["batch"]["batch"]}))
+    fu = results["fused"]
+    log(json.dumps({"fused": {
+        "device": fu["device"], "pool_bytes_total": fu["pool_bytes_total"],
+        "freed_bytes": fu["freed_bytes"], "released_bytes": fu["released_bytes"],
+        **{label: {k: r[k] for k in ("fused_wall_ms_median", "fused_wall_ms_p90",
+                                      "staged_wall_ms_median", "staged_wall_ms_p90",
+                                      "warmup_s", "capture_s", "launches_per_replay",
+                                      "gaps_to_staged", "pool_bytes")}
+           | {"busy_share": r["profiled_replay"]["busy_share"],
+              "kernels_and_copies": r["profiled_replay"]["kernels_and_copies"]}
+           for label, r in fu["scenes"].items()},
+        "batch_files_per_s": {k: results["batch"]["batch"][k] for k in (
+            "chunks_per_s_depth0", "chunks_per_s_depth2", "fused_chunks_per_s_depth0",
+            "fused_chunks_per_s_depth2")}}}))
     log(dev["nvidia_smi"])
     log(json.dumps({"kernels": results["times"]["kernels"]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev["kind"],

@@ -294,7 +294,7 @@ class PipelineConfig:
     imaging: ImagingConfig = field(default_factory=ImagingConfig)
     health: HealthConfig = field(default_factory=HealthConfig)
     max_windows: int = 64             # per-chunk window capacity
-    chunk_pipeline: str = "staged"    # "fused" is not ported yet
+    chunk_pipeline: str = "staged"    # or "fused": one CUDA graph per geometry
 
     def replace(self, **kw) -> "PipelineConfig":
         return dataclasses.replace(self, **kw)

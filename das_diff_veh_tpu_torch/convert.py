@@ -33,13 +33,13 @@ def config_from_dict(d: dict) -> C.PipelineConfig:
     """The port's configuration from ``dataclasses.asdict(jax_config)``.
 
     Copies the main-path sub-configurations field for field, ``health``
-    included (a field the port lacks is a ``TypeError``, so drift shows).
-    It raises ``NotImplementedError`` for ``chunk_pipeline="fused"``, which
-    the port lacks, and ignores ``bootstrap`` and ``fleet``, which the
+    included (a field the port lacks is a ``TypeError``, so drift shows),
+    and ``chunk_pipeline`` ("staged" or "fused"; another value is a
+    ``ValueError``).  It ignores ``bootstrap`` and ``fleet``, which the
     per-chunk path never reads."""
     chunk_pipeline = d.get("chunk_pipeline", "staged")
-    if chunk_pipeline != "staged":
-        raise NotImplementedError(f"chunk_pipeline={chunk_pipeline!r} is not ported yet")
+    if chunk_pipeline not in ("staged", "fused"):
+        raise ValueError(f"chunk_pipeline must be 'staged' or 'fused', got {chunk_pipeline!r}")
     kw = {name: cls(**d[name]) for name, cls in _SUB.items() if name in d}
     if "tracking" in d:
         tr = dict(d["tracking"])

@@ -5,7 +5,9 @@ strided channel as one batch, then a 2-state [arrival-time sample index,
 slowness] Kalman filter marches along the strided channels, one Python loop
 step per channel (the JAX ``lax.scan``), vectorized over the vehicle slots.
 The filter state is float32 whatever the data's dtype, as in the JAX package
-(its state arrays are created float32 and stay so under x64).
+(its state arrays are created float32 and stay so under x64).  The host axes
+and step indices reach the device once per geometry (``core.constants``);
+``VehicleTracks.x``/``.t`` are those shared tensors, never written.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import numpy as np
 import torch
 
 from das_diff_veh_tpu_torch.config import TrackingConfig, TrackQCConfig
+from das_diff_veh_tpu_torch.core.constants import host_constant
 from das_diff_veh_tpu_torch.core.section import VehicleTracks
 from das_diff_veh_tpu_torch.ops.interp import masked_interp_clamped
 from das_diff_veh_tpu_torch.ops.peaks import find_peaks, gaussian_likelihood
@@ -73,7 +76,7 @@ def track_vehicles(data: torch.Tensor, x_axis, start_x: float,
     nveh = base.shape[0]
     dev = data.device
 
-    pk_pos, pk_valid = find_peaks(data[torch.as_tensor(step_idx, device=dev)],
+    pk_pos, pk_valid = find_peaks(data[host_constant(step_idx, torch.int64, dev)],
                                   det.min_prominence, det.min_separation,
                                   det.prominence_wlen, det.max_peaks)
 
@@ -84,7 +87,7 @@ def track_vehicles(data: torch.Tensor, x_axis, start_x: float,
     count = torch.zeros((nveh,), dtype=torch.int32, device=dev)
     obs1 = torch.zeros((nveh,), dtype=_F32, device=dev)
     obs1_x = torch.zeros((nveh,), dtype=_F32, device=dev)
-    xs = torch.as_tensor(step_x, dtype=_F32, device=dev)
+    xs = host_constant(step_x, _F32, dev)
     states = []
     for i in range(len(step_idx)):
         x_i = xs[i]
@@ -209,12 +212,12 @@ def track_section(data: torch.Tensor, x_axis, t_axis, start_x: float,
     x_axis = np.asarray(x_axis)
     t_axis = np.asarray(t_axis)
     start_x_idx = int(np.abs(start_x - x_axis).argmin())
-    t_dev = torch.as_tensor(t_axis, dtype=data.dtype, device=data.device)
+    t_dev = host_constant(t_axis, data.dtype, data.device)
     base, base_valid = detect_vehicle_base(data, t_dev, start_x_idx, cfg)
     states, _ = track_vehicles(data, x_axis, start_x, end_x, base, base_valid, cfg)
     states, keep = track_qc(states, qc)
     grid = track_grid(x_axis, start_x, end_x)
     full = upsample_tracks(states, cfg.channel_stride, grid.shape[0])
     return VehicleTracks(t_idx=full, valid=base_valid & keep,
-                         x=torch.as_tensor(grid, dtype=data.dtype, device=data.device),
+                         x=host_constant(grid, data.dtype, data.device),
                          t=t_dev)

@@ -12,7 +12,8 @@ the gather's window starts are comparisons of these axes (``t >= arrival``),
 and exact ties are common there (trajectory times are multiples of the
 sample interval), so holding them in float32 would flip starts between a
 float32 and a float64 run.  ``traj_t`` is float32, as in JAX, since it comes
-from the float32 tracks.
+from the float32 tracks.  ``WindowBatch.x`` is the shared per-geometry
+tensor of ``core.constants``, never written.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 from das_diff_veh_tpu_torch.config import MuteConfig, WindowConfig
+from das_diff_veh_tpu_torch.core.constants import host_constant
 from das_diff_veh_tpu_torch.core.section import VehicleTracks, WindowBatch
 from das_diff_veh_tpu_torch.ops.filters import tukey_window
 from das_diff_veh_tpu_torch.ops.interp import masked_interp
@@ -154,10 +156,9 @@ def select_windows(data: torch.Tensor, x: np.ndarray, t: np.ndarray,
 
     # trajectory in physical coordinates, floor-quantized to the tracking grid
     traj_t = t_track0 + torch.floor(t_idx) * dt_track     # float32, NaN-preserving
-    xt = torch.as_tensor(x_track, dtype=torch.float64, device=dev)
+    xt = host_constant(x_track, torch.float64, dev)
     traj_x = xt.expand(t_idx.shape).contiguous()
 
     return WindowBatch(data=win_data,
-                       x=torch.as_tensor(x[start_x_idx:end_x_idx], dtype=torch.float64,
-                                         device=dev),
+                       x=host_constant(x[start_x_idx:end_x_idx], torch.float64, dev),
                        t=win_t, traj_x=traj_x, traj_t=traj_t, valid=valid)

@@ -8,7 +8,9 @@ Mirrors ``das_diff_veh_tpu/ops/dispersion.py``:
   frequency.  The bilinear sampling is two hat-weight contractions, one
   ``matmul`` and one ``einsum``; the JAX package leaves the same two
   products to XLA.  The axes are built on the host in float64 and cast to
-  the data's dtype.
+  the data's dtype, once per geometry on the data's device
+  (``core.constants``), as is the phase-shift's bin index and steering
+  axes.
 - ``fv_map_phase_shift``: the frequency-domain slant stack
   P(v, f) = |sum_x U(x, f) exp(i direction 2 pi f (x - x0) / v)|, one
   complex contraction per chunk of velocities.
@@ -26,6 +28,7 @@ import math
 import numpy as np
 import torch
 
+from das_diff_veh_tpu_torch.core.constants import host_constant
 from das_diff_veh_tpu_torch.ops.precision import bf16_round, check_precision
 from das_diff_veh_tpu_torch.ops.savgol import savgol_filter
 
@@ -44,13 +47,17 @@ def fk_transform(data: torch.Tensor, dx: float, dt: float):
     """2-D f-k magnitude spectrum with fftshifted axes.
 
     Returns (fk_mag (..., nk, nf), f_axis (nf,), k_axis (nk,))."""
-    nch, nt = data.shape[-2], data.shape[-1]
-    nf = _next_pow2_plus(nt)
-    nk = _next_pow2_plus(nch)
-    spec = torch.fft.fftshift(torch.fft.fft2(data, s=(nk, nf)), dim=(-2, -1))
-    f_axis, k_axis = _fk_axes(nk, nf, dx, dt)
+    f_axis, k_axis = _fk_axes(_next_pow2_plus(data.shape[-2]),
+                              _next_pow2_plus(data.shape[-1]), dx, dt)
     as_t = lambda a: torch.as_tensor(a, dtype=data.dtype, device=data.device)
-    return torch.abs(spec), as_t(f_axis), as_t(k_axis)
+    return _fk_mag(data), as_t(f_axis), as_t(k_axis)
+
+
+def _fk_mag(data: torch.Tensor) -> torch.Tensor:
+    """|fftshift(fft2)| on the next-pow2+1 padded grid (no host axes)."""
+    nk, nf = _next_pow2_plus(data.shape[-2]), _next_pow2_plus(data.shape[-1])
+    spec = torch.fft.fftshift(torch.fft.fft2(data, s=(nk, nf)), dim=(-2, -1))
+    return torch.abs(spec)
 
 
 def _hat(centers: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
@@ -73,7 +80,7 @@ def fv_map_fk(data: torch.Tensor, dx: float, dt: float, freqs, vels,
     if norm:
         data = data / torch.linalg.vector_norm(data, ord=1, dim=-1, keepdim=True)
     nk, nf = _next_pow2_plus(data.shape[-2]), _next_pow2_plus(data.shape[-1])
-    fk_mag, _, _ = fk_transform(data, dx, dt)
+    fk_mag = _fk_mag(data)
     if precision == "bf16":
         fk_mag = bf16_round(fk_mag)
     f_axis, k_axis = _fk_axes(nk, nf, dx, dt)
@@ -81,8 +88,8 @@ def fv_map_fk(data: torch.Tensor, dx: float, dt: float, freqs, vels,
     f0, df = float(f_axis[0]), float(f_axis[1] - f_axis[0])
     k0, dk = float(k_axis[0]), float(k_axis[1] - k_axis[0])
     kw = dict(dtype=data.dtype, device=data.device)
-    fr = torch.as_tensor(np.asarray(freqs), **kw)
-    vl = torch.as_tensor(np.asarray(vels), **kw)
+    fr = host_constant(freqs, **kw)
+    vl = host_constant(vels, **kw)
     # f-direction: one clamped position per output column
     uf = torch.clamp((fr - f0) / df, 0.0, nf - 1.0)                 # (nfreq,)
     Wf = _hat(torch.arange(nf, **kw)[:, None], uf[None, :])         # (nf_pad, nfreq)
@@ -128,14 +135,14 @@ def fv_map_phase_shift(data: torch.Tensor, dx: float, dt: float, freqs, vels,
         spec = spec / (torch.abs(spec) + 1e-20)
     fr = np.asarray(freqs, dtype=np.float64)
     fbin = np.clip(np.round(fr * nt * dt).astype(np.int64), 0, nt // 2)
-    u = _round_c(spec[..., torch.as_tensor(fbin, device=dev)])     # (..., nch, nfreq)
+    u = _round_c(spec[..., host_constant(fbin, torch.int64, dev)])  # (..., nch, nfreq)
     f64 = dict(dtype=torch.float64, device=dev)
     x = torch.arange(nch, **f64) * dx - x0
-    frt = torch.as_tensor(fr, **f64)
+    frt = host_constant(fr, **f64)
     vl = np.asarray(vels, dtype=np.float64)
     nv = vl.size
     pad = (-nv) % vel_chunk
-    vl_pad = torch.as_tensor(np.concatenate([vl, np.full(pad, vl[-1])]), **f64)
+    vl_pad = host_constant(np.concatenate([vl, np.full(pad, vl[-1])]), **f64)
     out = []
     for vc in vl_pad.reshape(-1, vel_chunk):
         phase = 2.0 * math.pi * frt[None, :, None] * x[None, None, :] / vc[:, None, None]

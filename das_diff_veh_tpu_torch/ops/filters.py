@@ -15,6 +15,8 @@ import math
 import numpy as np
 import torch
 
+from das_diff_veh_tpu_torch.core.constants import device_constant
+
 
 @functools.lru_cache(maxsize=64)
 def _butter_sos(order: int, wlo: float, whi: float) -> np.ndarray:
@@ -42,9 +44,10 @@ def _fft_zero_phase(data: torch.Tensor, fs: float, flo: float, fhi: float,
     ext = torch.cat([head, data, tail], dim=-1)
     nfft = ext.shape[-1]
     sos = _butter_sos(order, 2.0 * flo / fs, 2.0 * fhi / fs)
-    freqs = np.fft.rfftfreq(nfft, d=1.0 / fs)
-    gain = torch.as_tensor(_sos_gain(sos, freqs, fs), dtype=data.dtype,
-                           device=data.device)
+    gain = device_constant(
+        ("butter_gain", order, flo, fhi, fs, nfft),
+        lambda: _sos_gain(sos, np.fft.rfftfreq(nfft, d=1.0 / fs), fs),
+        data.dtype, data.device)
     spec = torch.fft.rfft(ext, dim=-1) * gain
     out = torch.fft.irfft(spec, n=nfft, dim=-1)[..., pad:pad + n]
     return torch.movedim(out, -1, axis)

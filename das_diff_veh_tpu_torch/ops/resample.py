@@ -7,7 +7,8 @@ dense ``(n, n_out)`` matrix of the same filter taps and applied with one
 matmul: the same products, summed in another order.  A ``conv1d`` over the
 zero-stuffed record would unfold every output's 4081 taps on the CPU: a
 224 GB im2col buffer for the 6000 rows of a 140-channel chunk
-(``tools/port_parity.py`` computes it).
+(``tools/port_parity.py`` computes it).  The matrix is copied to the
+data's device once per geometry (``core.constants``).
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ import math
 
 import numpy as np
 import torch
+
+from das_diff_veh_tpu_torch.core.constants import device_constant
 
 
 @functools.lru_cache(maxsize=16)
@@ -54,6 +57,7 @@ def resample_poly(data: torch.Tensor, up: int, down: int, axis: int = 0) -> torc
     if up == 1 and down == 1:
         return data
     moved = torch.movedim(data, axis, -1)
-    m = torch.as_tensor(_resample_matrix(moved.shape[-1], up, down),
-                        dtype=data.dtype, device=data.device)
+    n = moved.shape[-1]
+    m = device_constant(("resample", n, up, down), lambda: _resample_matrix(n, up, down),
+                        data.dtype, data.device)
     return torch.movedim(moved @ m, -1, axis)

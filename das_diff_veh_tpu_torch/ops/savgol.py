@@ -1,6 +1,7 @@
 """Savitzky-Golay smoothing as one correlation plus two edge-projection
 matmuls, matching ``scipy.signal.savgol_filter(mode='interp')`` (mirrors
-``das_diff_veh_tpu/ops/savgol.py``; the coefficients are built on the host)."""
+``das_diff_veh_tpu/ops/savgol.py``; the coefficients are built on the host,
+and copied to the data's device once, ``core.constants``)."""
 
 from __future__ import annotations
 
@@ -9,6 +10,8 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from das_diff_veh_tpu_torch.core.constants import device_constant
 
 
 @functools.lru_cache(maxsize=32)
@@ -37,12 +40,12 @@ def savgol_filter(data: torch.Tensor, window: int, order: int, axis: int = -1) -
         raise ValueError(f"savgol window must be odd, got {window}")
     if n < window:
         raise ValueError(f"savgol window {window} longer than axis length {n}")
-    as_t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=flat.dtype,
-                                     device=flat.device)
     # conv1d is a correlation, like lax.conv_general_dilated: reversed taps
-    out = F.conv1d(flat[:, None, :], as_t(coeffs[::-1])[None, None, :],
-                   padding=half)[:, 0, :]
-    head = flat[:, :window] @ as_t(left).T
-    tail = flat[:, n - window:] @ as_t(right).T
+    taps, left, right = (
+        device_constant(("savgol", window, order, i), lambda a=a: a, flat.dtype, flat.device)
+        for i, a in enumerate((coeffs[::-1], left, right)))
+    out = F.conv1d(flat[:, None, :], taps[None, None, :], padding=half)[:, 0, :]
+    head = flat[:, :window] @ left.T
+    tail = flat[:, n - window:] @ right.T
     out = torch.cat([head, out[:, half:n - half], tail], dim=-1)
     return torch.movedim(out.reshape(shape), -1, axis)

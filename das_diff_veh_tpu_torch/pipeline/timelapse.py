@@ -2,8 +2,8 @@
 surface-wave windows -> stacked dispersion image (and, for ``method=
 "xcorr"``, the stacked virtual shot gather).
 
-Mirrors the staged path of ``das_diff_veh_tpu/pipeline/timelapse.py`` for
-both methods.  ``process_chunk`` runs on the card unless the caller passes
+Mirrors ``das_diff_veh_tpu/pipeline/timelapse.py`` for both methods: the
+staged path here, the fused one in ``pipeline.fused``.  ``process_chunk`` runs on the card unless the caller passes
 ``device="cpu"``; it turns TF32 off first (``device.resolve_device``).  The
 computation follows the section's dtype: float32 on the card, float64 in the
 CPU parity tests.
@@ -12,7 +12,7 @@ CPU parity tests.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -39,7 +39,8 @@ class ChunkResult:
 
     disp_image: torch.Tensor          # (nvel, nfreq)
     vsg_stack: Optional[torch.Tensor]  # (nch_out, wlen) for method="xcorr"
-    n_windows: int                    # accepted (isolated) vehicle windows
+    n_windows: Union[int, torch.Tensor]  # accepted (isolated) vehicle windows: an
+                                         # int (staged), a 0-d device tensor (fused)
     tracks: VehicleTracks
     batch: WindowBatch                # surface-wave-band windows
     qs_batch: Optional[WindowBatch]   # raw-band windows (with_qs=True only)
@@ -154,14 +155,23 @@ def process_chunk(section: DasSection, cfg: Optional[PipelineConfig] = None,
     window, averaged over the valid windows).  With ``cfg.health.enabled``
     the input-health sentinel screens the data on ``device`` first
     (``ChunkResult.health``; ``PoisonedChunkError`` past
-    ``max_masked_fraction``).  Not ported yet, and raising
-    ``NotImplementedError``: ``cfg.chunk_pipeline="fused"``."""
+    ``max_masked_fraction``).
+
+    ``cfg.chunk_pipeline``: ``"staged"`` (this body: eager stages, host
+    geometry between them, ``n_windows`` pulled to a Python int) or
+    ``"fused"`` (``pipeline.fused.fused_process_chunk``: one CUDA graph
+    replay per chunk, ``n_windows`` a 0-d device tensor).  Any other value
+    raises before the data is touched."""
     if method not in {"xcorr", "surface_wave"}:
         raise ValueError(f"method must be 'xcorr' or 'surface_wave', got {method!r}")
     cfg = cfg if cfg is not None else PipelineConfig()
-    if cfg.chunk_pipeline != "staged":
-        raise NotImplementedError(f"chunk_pipeline={cfg.chunk_pipeline!r} is not "
-                                  f"ported yet; use 'staged'")
+    if cfg.chunk_pipeline not in {"staged", "fused"}:
+        raise ValueError(f"chunk_pipeline must be 'staged' or 'fused', got "
+                         f"{cfg.chunk_pipeline!r}")
+    if cfg.chunk_pipeline == "fused":
+        from das_diff_veh_tpu_torch.pipeline.fused import fused_process_chunk
+        return fused_process_chunk(section, cfg, method=method, x_is_channels=x_is_channels,
+                                   with_qs=with_qs, tag="process_chunk", device=device)
     dev = resolve_device(device)
     section, health = screen_chunk(section.to(dev), cfg, tag="process_chunk")
     x_dist, t, dt = resolve_chunk_metadata(section, cfg, x_is_channels)

@@ -28,6 +28,11 @@ the side stream's pool; the compute thread marks it with ``record_stream``
 on its own stream, so the caching allocator does not hand the block to a
 later staging copy while compute kernels that read it are still queued.  On
 the CPU the section keeps the reader's dtype.
+
+**The fused chunk** (``cfg.chunk_pipeline="fused"``) captures its first
+chunk of each geometry in the compute thread while the loader may be staging
+the next one; the capture is thread-local (``pipeline.fused``), so the
+loader's allocations, pinned copies and stream waits cannot break it.
 """
 
 from __future__ import annotations
@@ -170,6 +175,17 @@ def stage_section(sec: DasSection, dev: torch.device, stream) -> DasSection:
         data.copy_(host, non_blocking=True)
     stream.synchronize()
     return DasSection(data, sec.x, sec.t)
+
+
+def pull_count_and_image(n_windows, image: torch.Tensor):
+    """``(int, numpy image)`` in one copy to the host, whichever chunk path
+    ran: the fused chunk's 0-d ``n_windows`` rides in front of the image (a
+    count below 2**24 is exact in float32); the staged chunk's is already an
+    int.  JAX ``workflow.py:310-320`` pulls both in one ``device_get``."""
+    if not torch.is_tensor(n_windows):
+        return int(n_windows), image.cpu().numpy()
+    both = torch.cat([n_windows.reshape(1).to(image.dtype), image.reshape(-1)]).cpu()
+    return int(both[0]), both[1:].reshape(image.shape).numpy()
 
 
 def run_directory(dataset: DirectoryDataset, cfg: Optional[PipelineConfig] = None,
@@ -341,11 +357,8 @@ def run_directory(dataset: DirectoryDataset, cfg: Optional[PipelineConfig] = Non
         def _default_compute(section: DasSection):
             chunk = process_chunk(section, cfg, method=method,
                                   x_is_channels=x_is_channels, device=dev)
-            # n_windows is already a Python int on the staged path; the image
-            # comes back in one copy, only when it joins the sum
-            n = chunk.n_windows
-            img = chunk.disp_image.cpu().numpy() if n > 0 else None
-            return n, img, chunk.health
+            n, img = pull_count_and_image(chunk.n_windows, chunk.disp_image)
+            return n, (img if n > 0 else None), chunk.health
 
         chunk_fn = compute_fn if compute_fn is not None else _default_compute
 

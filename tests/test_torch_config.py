@@ -53,8 +53,12 @@ def test_config_from_dict_round_trip():
 
 
 def test_config_from_dict_refuses_unported_modes():
+    """The fused chunk is ported and carries across; an unknown chunk
+    pipeline is refused."""
     d = dataclasses.asdict(J.PipelineConfig().replace(chunk_pipeline="fused"))
-    with pytest.raises(NotImplementedError, match="chunk_pipeline"):
+    assert config_from_dict(d).chunk_pipeline == "fused"
+    d["chunk_pipeline"] = "bogus"
+    with pytest.raises(ValueError, match="chunk_pipeline"):
         config_from_dict(d)
 
 

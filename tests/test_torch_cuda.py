@@ -1,5 +1,6 @@
 """Tests of the port that need the card: the CUDA kernels against their plain
-PyTorch versions, and a small chunk on the card against the CPU.
+PyTorch versions, a small chunk on the card against the CPU, the batch loop,
+and the fused chunk's CUDA graph against the staged chunk.
 
 They carry the ``cuda`` marker and skip without a CUDA device.  The file
 imports neither JAX nor the JAX package, so on a machine without JAX it runs
@@ -452,3 +453,129 @@ def test_run_directory_on_card_bit_equal_at_depth_0_and_2(card, tmp_path):
         runs[depth] = res
     assert np.array_equal(runs[0].avg_image, runs[2].avg_image)
     assert runs[0].n_vehicles == runs[2].n_vehicles
+
+
+# ---- the fused chunk: one CUDA graph per geometry ----
+
+def _fused_scene(seed: int, card):
+    """A 100-channel, 2-minute scene at float32 on the card and its staged
+    and fused configurations (pivot 400 m)."""
+    from das_diff_veh_tpu_torch.config import ImagingConfig, PipelineConfig
+    from das_diff_veh_tpu_torch.io.synthetic import SceneConfig, synthesize_section
+
+    sec, _ = synthesize_section(SceneConfig(nch=100, duration=120.0, n_vehicles=4, seed=seed,
+                                            speed_range=(12.0, 18.0)))
+    cfg = PipelineConfig().replace(imaging=ImagingConfig(x0=400.0))
+    return sec.to(card, torch.float32), cfg, cfg.replace(chunk_pipeline="fused")
+
+
+def _same_chunk(a, b) -> bool:
+    """Every field of two chunk results bit for bit (NaN where NaN)."""
+    import dataclasses
+
+    pairs = [(a.disp_image, b.disp_image), (a.vsg_stack, b.vsg_stack)]
+    for obj in ("tracks", "batch"):
+        pairs += [(getattr(getattr(a, obj), f.name), getattr(getattr(b, obj), f.name))
+                  for f in dataclasses.fields(getattr(a, obj))]
+    return int(a.n_windows) == int(b.n_windows) and all(_same(x, y) for x, y in pairs)
+
+
+def test_fused_chunk_on_card_equals_staged_without_aliasing_or_recapture(card):
+    """The first fused call captures one graph (2 launches of B1 recorded),
+    every call equals the staged chunk bit for bit, a later call leaves an
+    earlier result alone, and warm calls replay without capturing."""
+    from das_diff_veh_tpu_torch.pipeline import fused as F
+    from das_diff_veh_tpu_torch.pipeline.timelapse import process_chunk
+
+    F.clear_programs()
+    sec, cfg, fcfg = _fused_scene(11, card)
+    other, _, _ = _fused_scene(12, card)
+    caps, progs, reps = F.n_captures(), F.n_programs(), F.n_replays()
+    first = process_chunk(sec, fcfg, device=card)
+    assert (F.n_captures(), F.n_programs(), F.n_replays()) == (caps + 1, progs + 1, reps + 1)
+    assert F.programs()[-1].launches_per_replay == {"traj_gather": 2, "traj_dot": 0}
+    assert first.n_windows.is_cuda and first.n_windows.dim() == 0
+    kept = {k: v.clone() for k, v in (("img", first.disp_image), ("data", first.batch.data))}
+    assert _same_chunk(first, process_chunk(sec, cfg, device=card))
+    second = process_chunk(other, fcfg, device=card)
+    assert torch.equal(first.disp_image, kept["img"]) and torch.equal(first.batch.data,
+                                                                      kept["data"])
+    assert second.disp_image.data_ptr() != first.disp_image.data_ptr()
+    assert _same_chunk(second, process_chunk(other, cfg, device=card))
+    for _ in range(3):
+        process_chunk(sec, fcfg, device=card)
+    assert (F.n_captures(), F.n_programs(), F.n_replays()) == (caps + 1, progs + 1, reps + 5)
+    held, reserved = torch.cuda.memory_allocated(card), torch.cuda.memory_reserved(card)
+    pool = F.programs()[-1].pool_bytes()
+    assert pool > 0
+    F.clear_programs()
+    assert torch.cuda.memory_allocated(card) < held
+    assert reserved - torch.cuda.memory_reserved(card) >= pool
+
+
+def test_fused_body_does_not_sync_on_card(card):
+    """A second eager call of the program body (the constants cached by the
+    first) under ``torch.cuda.set_sync_debug_mode("error")``: no operation of
+    the body synchronises with the host."""
+    from das_diff_veh_tpu_torch.pipeline import fused as F
+    from das_diff_veh_tpu_torch.pipeline.timelapse import resolve_chunk_metadata
+
+    sec, _, fcfg = _fused_scene(11, card)
+    x, t, _ = resolve_chunk_metadata(sec, fcfg)
+    prog = F._program(sec.data.shape, sec.data.dtype, sec.data.device, x, t, fcfg, "xcorr",
+                      False)
+    first = prog.body(sec.data)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        second = prog.body(sec.data)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert _same(first[0], second[0])
+
+
+def test_fused_run_directory_captures_beside_the_loader(card, tmp_path):
+    """Six files through run_directory with the fused chunk at prefetch depth
+    2, the program cache empty: the first chunk is captured while the loader
+    thread reads, pins and stages the next files (a slowed reader keeps it
+    busy), and the image equals the staged run's bit for bit."""
+    import time
+
+    import numpy as np
+
+    from das_diff_veh_tpu_torch.io.readers import DirectoryDataset
+    from das_diff_veh_tpu_torch.pipeline import fused as F
+    from das_diff_veh_tpu_torch.pipeline.workflow import run_directory
+    from das_diff_veh_tpu_torch.runtime import RuntimeConfig, load_trace
+
+    sec, cfg, fcfg = _fused_scene(11, card)
+    day = tmp_path / "20230301"
+    day.mkdir()
+    for i in range(6):
+        np.savez(day / f"20230301_{i:02d}0000.npz", data=sec.data.cpu().double().numpy()
+                 * (1.0 + 0.01 * i), x_axis=sec.x.numpy(), t_axis=sec.t.numpy())
+
+    class SlowReader(DirectoryDataset):
+        def read(self, i):
+            time.sleep(0.15)
+            return super().read(i)
+
+    runs = {}
+    for name, c, depth in (("staged", cfg, 0), ("fused", fcfg, 2)):
+        F.clear_programs()
+        caps = F.n_captures()
+        trace = str(tmp_path / f"{name}.jsonl")
+        ds = SlowReader("20230301", root=str(tmp_path), ch1=None, ch2=None, smoothing=False,
+                        rescale_after=None)
+        runs[name] = run_directory(ds, c, x_is_channels=False, device=card,
+                                   runtime=RuntimeConfig(prefetch_depth=depth, trace_path=trace))
+        assert F.n_captures() == caps + (name == "fused")
+        assert not runs[name].quarantined and runs[name].n_vehicles > 0
+    spans = [e for e in load_trace(trace) if e["ph"] == "X"]
+    first = min((e for e in spans if e["name"] == "compute"), key=lambda e: e["ts"])
+    beside = [e for e in spans if e["name"] in ("read", "device_put")
+              and e["tid"] != first["tid"] and e["ts"] < first["ts"] + first["dur"]
+              and first["ts"] < e["ts"] + e["dur"]]
+    assert beside, "no loader span overlapped the capturing chunk"
+    assert np.array_equal(runs["fused"].avg_image, runs["staged"].avg_image)
+    assert runs["fused"].n_vehicles == runs["staged"].n_vehicles

@@ -137,9 +137,13 @@ def _peak_rel(a, b):
     return np.abs(a - b).max() / max(np.abs(b).max(), 1e-300)
 
 
-def test_chunk_with_screen_matches_jax(pipeline_scene, pipeline_cfg):
+def test_chunk_with_screen_matches_jax(pipeline_scene, pipeline_cfg, monkeypatch):
     """3 NaN channels and a flatline channel, the screen on: the image
-    within 1e-7 peak-relative of JAX and the same health summary."""
+    within 1e-7 peak-relative of JAX and the same health summary.  The JAX
+    screen counts into a fresh ``SCREENS_BY_TAG``, restored afterwards:
+    tests/test_resilience.py pins that nothing in the suite screens under
+    the JAX tag "process_chunk"."""
+    monkeypatch.setattr(JH, "SCREENS_BY_TAG", {})
     section, _ = pipeline_scene
     data = np.array(section.data)
     data[[20, 47, 48], 500:900] = np.nan

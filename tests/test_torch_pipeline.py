@@ -109,17 +109,18 @@ def test_entry_points_need_a_card_unless_cpu_is_asked_for():
 
 
 def test_unported_options_raise():
-    """The fused chunk is still to port; an unknown method is refused.  The
-    health sentinel is ported: with it on, an all-flat chunk is refused as
-    poisoned instead of raising NotImplementedError."""
+    """An unknown chunk pipeline and an unknown method are refused (the fused
+    chunk is ported: tests/test_torch_fused.py).  The health sentinel is
+    ported: with it on, an all-flat chunk is refused as poisoned instead of
+    raising NotImplementedError."""
     from das_diff_veh_tpu_torch.resilience.health import PoisonedChunkError
 
     x, t = np.arange(4) * 8.16, np.arange(8) * 0.004
     sec = section_from_numpy(np.zeros((4, 8)), x, t, device="cpu")
     with pytest.raises(ValueError, match="surface_wave"):
         process_chunk(sec, method="rayleigh", device="cpu")
-    with pytest.raises(NotImplementedError, match="chunk_pipeline"):
-        process_chunk(sec, PipelineConfig(chunk_pipeline="fused"), device="cpu")
+    with pytest.raises(ValueError, match="chunk_pipeline"):
+        process_chunk(sec, PipelineConfig(chunk_pipeline="bogus"), device="cpu")
     cfg = PipelineConfig()
     cfg = cfg.replace(health=dataclasses.replace(cfg.health, enabled=True))
     with pytest.raises(PoisonedChunkError, match="4/4 channels masked"):
