@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``das_diff_veh_tpu_torch``) on one card.
 
-    python3 chip_smoke.py [--out results.json] [--profile]
+    python3 chip_smoke.py [--out results.json] [--profile] [--science-only]
 
 Phases, each of which must pass:
 
@@ -101,13 +101,35 @@ Phases, each of which must pass:
    folder, staged and fused, with one planted ``runtime.compute`` fault: one
    ``gather.fused`` demotion each, B1 launched by no chunk from the failure on
    and a new fused program without it, the images within 1e-3 of the serial
-   loop and of the CPU float64 chunk, B1 again after ``reset()``.
+   loop and of the CPU float64 chunk, B1 again after ``reset()``;
+17. science: (a) ``make_window_batch(64 windows, seed 4)`` through
+   ``build_gather_batch`` (2 launches of B1), ``bootstrap_disp`` with
+   ``BootstrapConfig()`` (30 x 60 windows, four bands, 242 x 1000 images) in
+   float64 on the card against the CPU float64 run (images within 1e-9
+   peak-relative, raw ridge picks equal but near ties, counted), the float32
+   run's picks printed, ``gather_disp_image(enhance=True)`` equal on both,
+   and the full convergence sweep (60 sizes x 30) held to the CPU at sizes
+   1, 30 and 60; (b) tests/test_full_stack.py's truth scene on the card
+   (a float32 chunk, 4 launches of B1) with its assertions; (c) the speed
+   search space at full width (``invert_multirun``: 3 runs x 50, 400-point
+   grid, ``invalid="truncate"``; maxiter and refine steps cut to 40) on
+   curves predicted from ``INVERSION_PARITY.json``'s 700_mid_speed model, in
+   float64 and float32: the misfit at ``x_best`` within 1e-10 of the CPU's,
+   a non-increasing history, a warm start from ``x_best`` ending at or below
+   it, seconds per PSO iteration and refine step, a profiled iteration's
+   busy share and kernels, memory peaks; (d) ``invert_fleet`` over 8 noisy
+   copies of those curves on one slot and on ``make_mesh(4,
+   device="cuda")`` (equal, or the gap printed with its cause and at most
+   1e-12), intervals containing the estimates, ``FleetVsMonitor`` quiet on an
+   unshifted epoch and raising ``das_fleet_vs_shift_total`` and
+   ``vs_shift`` records on an epoch whose top layer is 20 % faster; and
+   ``phase_sensitivity`` at 3 periods against the CPU within 1e-9.
 
 Every demotion of the degradation ladder is printed with its component, its
 error and its phase; a demotion that phase 16 did not plant fails the run.
 The line before the last is a JSON object ``{"kernels": [...]}``, after
-``{"batch": {...}}``, ``{"fused": {...}}``, ``{"mesh": {...}}`` and the
-card's name and power limit; the last
+``{"batch": {...}}``, ``{"fused": {...}}``, ``{"mesh": {...}}``,
+``{"science": {...}}`` and the card's name and power limit; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the rest of the repository beside it, the script exits non-zero and prints
 no result.
@@ -2137,13 +2159,484 @@ def phase_mesh(section, cpu_image, root: str, serial_images: dict, nvidia_smi: s
     return mesh, kernel
 
 
+# Phase 17: the science path.  (a) the bootstrap at the reference's size:
+# make_window_batch(64 windows, seed 4), BootstrapConfig() (30 repetitions x
+# 60 windows, four bands) on DispersionConfig()'s 242 x 1000 grid, and the
+# full convergence sweep (60 sizes x 30 repetitions); (b) the truth scene of
+# tests/test_full_stack.py; (c) BASELINE config 5's search space at full
+# width, the depth cut; (d) a fleet of 8 targets and the monitor.
+SCIENCE_WINDOWS = dict(n_windows=64, seed=4)
+# float64 on both devices: cuFFT and MKL/pocketfft round otherwise per
+# transform (~1e-16 relative); 1e-9 peak-relative leaves a factor 1e6
+SCIENCE_IMAGE_TOL = 1e-9
+SCIENCE_MISFIT_TOL = 1e-10
+SCIENCE_SENS_TOL = 1e-9
+# the reference's convergence sweep (imaging_diff_speed cells 30-31): bt_size
+# 1..60, 30 repetitions each; compared with the CPU at three sizes
+SCIENCE_CONV = dict(max_sample_num=60, bt_times=30)
+SCIENCE_CONV_AT = (1, 30, 60)
+# (c): invert_multirun at BASELINE config 5's width; maxiter and the refine
+# steps cut to fit the run (reference 1000 iterations; the parity runs 400
+# iterations and 250 refine steps, INVERSION_PARITY.json "config")
+SCIENCE_SEARCH = dict(n_runs=3, popsize=50, n_grid=400, n_subdiv=1, n_refine_starts=8,
+                      invalid="truncate", maxiter=40, n_refine_steps=40, seed=0)
+SCIENCE_REDUCED = {"maxiter": {"run": 40, "reference": 1000, "parity": 400},
+                   "n_refine_steps": {"run": 40, "parity": 250}}
+# scripts/inversion_parity.py:83, 700_mid_speed: (BootstrapConfig band, mode, weight)
+SCIENCE_BANDS = ((0, 0, 2.0), (2, 3, 1.0), (3, 4, 1.0))
+SCIENCE_FLEET = dict(n_runs=2, maxiter=20, popsize=20, n_refine_starts=4, n_refine_steps=20,
+                     n_grid=400, invalid="truncate", seed=0)
+SCIENCE_TARGETS = 8
+# B1 in phase 17: the 64-window batch (2), the truth scene's chunk (2) and
+# its per-window gathers (2)
+SCIENCE_LAUNCHES = {"traj_gather": 6, "traj_dot": 0, "cross_spectra": 0, "lag_absmax": 0}
+
+
+def _ridge_pick_check(img_card, img_cpu, freqs, vels, bcfg) -> dict:
+    """Raw ridge picks (a one-tap smoother) of the card's and the CPU's
+    images, band by band: equal, except where the CPU image's values at the
+    two picks lie within 1e-9 of its peak (a near tie), counted."""
+    from das_diff_veh_tpu_torch.analysis.ridge import extract_ridge_batch
+
+    out = {"compared": 0, "differ": 0, "near_ties": 0}
+    for m in range(len(bcfg.freq_lb)):
+        band = (freqs >= bcfg.freq_lb[m]) & (freqs < bcfg.freq_ub[m])
+        ref_idx = int(bcfg.ref_freq_idx[m] - np.sum(freqs < bcfg.freq_lb[m]))
+        cols = np.nonzero(band)[0]
+        picks = []
+        for img in (img_card, img_cpu):
+            sub = img[:, :, torch.as_tensor(cols, device=img.device)]
+            picks.append(extract_ridge_batch(freqs[band], vels, sub, ref_freq_idx=ref_idx,
+                                             sigma=float(bcfg.sigma[m]), vel_max=bcfg.vel_max,
+                                             sg_window=1, sg_order=0).cpu().numpy())
+        cpu = img_cpu.cpu().numpy()
+        out["compared"] += picks[0].size
+        for r, j in zip(*np.nonzero(picks[0] != picks[1])):
+            rows = [int(round((p[r, j] - vels[0]) / (vels[1] - vels[0]))) for p in picks]
+            col = cpu[r, :, cols[j]]
+            gap = abs(col[rows[0]] - col[rows[1]]) / np.abs(cpu[r]).max()
+            out["differ"] += 1
+            out["near_ties"] += int(gap <= 1e-9)
+    if out["differ"] != out["near_ties"]:
+        raise AssertionError(f"ridge picks differ beyond near ties: {out}")
+    return out
+
+
+def _science_bootstrap(nvidia_smi: str) -> dict:
+    """(a): the bootstrap and the convergence sweep at the reference's size."""
+    from das_diff_veh_tpu_torch import workloads
+    from das_diff_veh_tpu_torch.analysis import bootstrap as B
+    from das_diff_veh_tpu_torch.config import (BootstrapConfig, DispersionConfig,
+                                               GatherConfig, ImagingConfig)
+    from das_diff_veh_tpu_torch.models import vsg as V
+
+    gcfg, dcfg, bcfg, icfg = GatherConfig(), DispersionConfig(), BootstrapConfig(), ImagingConfig()
+    batch32, x = workloads.make_window_batch(**SCIENCE_WINDOWS, device="cuda")
+    geo = workloads.make_gather_geometry(x)
+    gathers32 = V.build_gather_batch(batch32, geo, gcfg)                 # B1, 2 launches
+    batch64, _ = workloads.make_window_batch(**SCIENCE_WINDOWS, dtype=np.float64, device="cpu")
+    gathers_cpu = V.build_gather_batch(batch64, geo, gcfg)
+    gathers64 = gathers_cpu.to("cuda")
+    gather_gap = peak_rel(gathers32, gathers_cpu)
+    offs, dt, dx = geo.offsets(x), geo.dt, 8.16
+    args = (offs, dt, dx)
+    win = dict(disp_start_x=icfg.disp_start_x, disp_end_x=icfg.disp_end_x)
+    n = SCIENCE_WINDOWS["n_windows"]
+    idx = B.sample_indices(n, bcfg.bt_size, bcfg.bt_times, np.random.default_rng(0))
+
+    images = {}
+    for name, g in (("card", gathers64), ("cpu", gathers_cpu)):
+        stacks = B._resample_stacks(g, torch.as_tensor(idx, device=g.device))
+        images[name] = V.gather_disp_image(stacks, offs, dt, dx, dcfg, icfg.disp_start_x,
+                                           icfg.disp_end_x)
+    image_err = peak_rel(images["card"], images["cpu"])
+    log(f"bootstrap images (30 x {tuple(images['card'].shape[1:])}), card float64 vs CPU "
+        f"float64: peak-rel {image_err:.3e}; f32 gathers (B1) vs CPU f64 gathers: "
+        f"{gather_gap:.3e}")
+    if not image_err <= SCIENCE_IMAGE_TOL:
+        raise AssertionError(f"bootstrap images differ by {image_err:.3e}")
+    picks = _ridge_pick_check(images["card"], images["cpu"], dcfg.freqs(), dcfg.vels(), bcfg)
+    log(f"raw ridge picks card vs CPU: {picks}")
+    enh_card = V.gather_disp_image(gathers64[1], offs, dt, dx, dcfg, enhance=True, **{
+        "start_x": icfg.disp_start_x, "end_x": icfg.disp_end_x})
+    enh_cpu = V.gather_disp_image(gathers_cpu[1], offs, dt, dx, dcfg, enhance=True, **{
+        "start_x": icfg.disp_start_x, "end_x": icfg.disp_end_x})
+    if enh_card.dtype != torch.int32 or not torch.equal(enh_card.cpu(), enh_cpu):
+        raise AssertionError("enhanced image differs between the card and the CPU")
+    del images
+
+    walls = {}
+    ridges = {}
+    for name, g in (("f64", gathers64), ("f32", gathers32), ("cpu_f64", gathers_cpu)):
+        for _ in range(2):                  # the second call is warm (plans, constants)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ridges[name], freqs = B.bootstrap_disp(g, *args, idx, bcfg, dcfg, **win)
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+    smooth_gap = max(float(np.abs(a - b).max()) for a, b in zip(ridges["f64"], ridges["cpu_f64"]))
+    f32_gap = [np.abs(a - b) for a, b in zip(ridges["f32"], ridges["cpu_f64"])]
+    f32 = {"max_abs_m_s": max(float(d.max()) for d in f32_gap),
+           "share_within_1_m_s": float(np.mean(np.concatenate([d.ravel() for d in f32_gap])
+                                              <= 1.0))}
+    log(f"bootstrap_disp (30 x 60, 4 bands) walls ({nvidia_smi}): card f64 {walls['f64']:.3f} s, "
+        f"card f32 {walls['f32']:.3f} s, CPU f64 {walls['cpu_f64']:.3f} s; smoothed ridges "
+        f"card f64 vs CPU {smooth_gap:.3e} m/s; f32 vs CPU f64 {f32}")
+    if picks["near_ties"] == 0 and not smooth_gap <= 1e-6:
+        raise AssertionError(f"bootstrap ridges differ by {smooth_gap} m/s without a near tie")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    top, reps = SCIENCE_CONV["max_sample_num"], SCIENCE_CONV["bt_times"]
+    conv = B.convergence_test(gathers64, *args, top, reps, np.random.default_rng(1), bcfg, dcfg)
+    torch.cuda.synchronize()
+    conv_wall = time.perf_counter() - t0
+    # the CPU at three sizes, the index matrices replayed from the same stream
+    rng = np.random.default_rng(1)
+    conv_cpu = {}
+    for size in range(1, top + 1):
+        sel = B.sample_indices(n, size, reps, rng)
+        if size in SCIENCE_CONV_AT:
+            sel = np.concatenate([sel, np.broadcast_to(sel[:, :1], (reps, top - size))], axis=1)
+            rid, _ = B.bootstrap_disp(gathers_cpu, *args, sel, bcfg, dcfg,
+                                      counts=np.full(reps, size))
+            conv_cpu[size] = [float(np.sum(np.std(r, axis=0))) for r in rid]
+    conv_gap = max(abs(conv[m, s - 1] - conv_cpu[s][m]) / max(abs(conv_cpu[s][m]), 1e-12)
+                   for s in SCIENCE_CONV_AT for m in range(conv.shape[0]))
+    log(f"convergence sweep ({top} sizes x {reps} repetitions = {top * reps} stacks and images) "
+        f"on the card: "
+        f"{conv_wall:.2f} s ({nvidia_smi}); at sizes {SCIENCE_CONV_AT} card vs CPU float64 "
+        f"rel {conv_gap:.3e}; spread at 60: {conv[:, -1].round(3).tolist()} m/s")
+    if not (np.isfinite(conv).all() and conv_gap <= 1e-9):
+        raise AssertionError(f"convergence curve differs from the CPU's by {conv_gap:.3e}")
+    return {"image_peak_rel_err": image_err, "raw_picks": picks, "enhance_equal": True,
+            "smoothed_ridge_gap_m_s": smooth_gap, "f32_picks": f32,
+            "bootstrap_wall_s": walls, "convergence_wall_s": conv_wall,
+            "convergence_rel_err": conv_gap, "gathers_f32_vs_f64": gather_gap,
+            "convergence_spread_at": {str(s): conv[:, s - 1].tolist() for s in SCIENCE_CONV_AT}}
+
+
+def _science_truth(nvidia_smi: str) -> dict:
+    """(b): tests/test_full_stack.py's scene and budget on the card."""
+    from das_diff_veh_tpu_torch.analysis.bootstrap import bootstrap_disp, sample_indices
+    from das_diff_veh_tpu_torch.config import BootstrapConfig, ImagingConfig, PipelineConfig
+    from das_diff_veh_tpu_torch.inversion import (LayerBounds, LayeredModel, ModelSpec,
+                                                  curves_from_ridges, density_gardner_linear,
+                                                  invert, phase_velocity, vp_from_poisson)
+    from das_diff_veh_tpu_torch.io.synthetic import SceneConfig, synthesize_section
+    from das_diff_veh_tpu_torch.models import vsg as V
+    from das_diff_veh_tpu_torch.pipeline.timelapse import process_chunk
+
+    t0 = time.perf_counter()
+    vs = torch.tensor([0.24, 0.55], dtype=torch.float64, device="cuda")
+    vp = vp_from_poisson(vs, 0.4375)
+    truth = LayeredModel(torch.tensor([0.018, 0.05], dtype=torch.float64, device="cuda"), vp,
+                         vs, density_gardner_linear(vp))
+    f_grid = np.linspace(0.5, 30.0, 400)
+    c_grid = phase_velocity(1.0 / f_grid, truth, mode=0, n_grid=800).cpu().numpy() * 1000.0
+    if not np.isfinite(c_grid).all():
+        raise AssertionError("the truth model's fundamental mode is missing somewhere")
+
+    def c_of_f(freqs):
+        return np.interp(np.clip(np.asarray(freqs, float), f_grid[0], f_grid[-1]), f_grid, c_grid)
+
+    section, _ = synthesize_section(SceneConfig(nch=100, duration=300.0, n_vehicles=8, seed=3,
+                                                speed_range=(10.0, 20.0), noise_std=0.005,
+                                                phase_velocity=c_of_f))
+    cfg = PipelineConfig().replace(imaging=ImagingConfig(x0=400.0))
+    res = process_chunk(section.to(dtype=torch.float32), cfg, method="xcorr", device="cuda")
+    dt = float(section.t[1] - section.t[0])
+    x = res.batch.x.cpu().numpy()
+    g = V.VsgGeometry.build(x, dt, cfg.imaging.x0, cfg.imaging.x0 + cfg.imaging.disp_start_x,
+                            cfg.imaging.x0 + cfg.gather.far_offset, cfg.gather)
+    gathers = V.build_gather_batch(res.batch, g, cfg.gather)[res.batch.valid]
+    n = int(gathers.shape[0])
+    bcfg = BootstrapConfig(bt_times=8, bt_size=n - 3, sigma=(35.0,), ref_freq_idx=(87,),
+                           freq_lb=(3.5,), freq_ub=(10.0,))
+    idx = sample_indices(n, n - 3, 8, np.random.default_rng(0))
+    ridges, freqs = bootstrap_disp(gathers, g.offsets(x), dt, cfg.interrogator.dx, idx, bcfg,
+                                   cfg.dispersion, disp_start_x=cfg.imaging.disp_start_x,
+                                   disp_end_x=cfg.imaging.disp_end_x)
+    band = (freqs >= 3.5) & (freqs < 10.0)
+    spread = float(ridges[0].std(axis=0).max())
+    med_err = float(np.median(np.abs(ridges[0].mean(axis=0) - c_of_f(freqs[band]))
+                              / c_of_f(freqs[band])))
+    c = curves_from_ridges(freqs, [3.5], [10.0], [ridges[0]], band_modes=[0])[0]
+    cur = c._replace(period=c.period[::3], velocity=c.velocity[::3],
+                     uncertainty=np.maximum(c.uncertainty[::3], 1.5e-2))
+    spec = ModelSpec(layers=(LayerBounds((0.006, 0.035), (0.15, 0.45)),
+                             LayerBounds((0.02, 0.08), (0.35, 0.9))))
+    r = invert(spec, [cur], popsize=20, maxiter=60, n_refine_starts=6, n_refine_steps=50,
+               n_grid=200, seed=0, device="cuda")
+    vs_rec = r.model.vs.cpu().numpy()
+    th_rec = float(r.model.thickness[0])
+    pred = phase_velocity(cur.period, r.model, mode=0, n_grid=200).cpu().numpy()
+    closure = float(np.median(np.abs(pred - cur.velocity) / cur.velocity))
+    wall = time.perf_counter() - t0
+    out = {"n_windows": int(res.n_windows), "ridge_spread_max_m_s": spread,
+           "ridge_median_rel_err": med_err, "vs_km_s": vs_rec.tolist(),
+           "vs_rel_err": (np.abs(vs_rec - [0.24, 0.55]) / [0.24, 0.55]).tolist(),
+           "thickness_km": th_rec, "misfit": float(r.misfit), "closure_median_rel_err": closure,
+           "wall_s": wall}
+    log(f"truth scene on the card ({nvidia_smi}): {out}")
+    checks = [out["n_windows"] >= 5, spread > 0.0, med_err < 0.08,
+              out["vs_rel_err"][0] < 0.10, out["vs_rel_err"][1] < 0.20,
+              abs(th_rec - 0.018) / 0.018 < 0.40, out["misfit"] < 1.5,
+              np.isfinite(pred).all(), closure < 0.05]
+    if not all(checks):
+        raise AssertionError(f"truth scene: a check of tests/test_full_stack.py failed: {checks}")
+    return out
+
+
+def _science_curves(model, freqs, bcfg, noise_seed=None):
+    """700_mid_speed's curves predicted by ``model``: BootstrapConfig bands 0,
+    2 and 3 as modes 0, 3 and 4 (weights 2, 1, 1) at 0.1 Hz steps, 2 %
+    uncertainty, points below cutoff dropped; with ``noise_seed``, one
+    draw of Gaussian noise at the uncertainty."""
+    from das_diff_veh_tpu_torch.inversion import Curve, phase_velocity
+
+    rng = None if noise_seed is None else np.random.default_rng(noise_seed)
+    curves = []
+    for band, mode, weight in SCIENCE_BANDS:
+        sel = (freqs >= bcfg.freq_lb[band]) & (freqs < bcfg.freq_ub[band])
+        periods = (1.0 / freqs[sel])[::-1].copy()
+        vel = phase_velocity(periods, model, mode=mode).cpu().numpy()
+        keep = np.isfinite(vel)
+        v, unc = vel[keep], 0.02 * vel[keep]
+        if rng is not None:
+            v = v + rng.normal(0.0, unc)
+        curves.append(Curve(periods[keep], v, mode, weight, unc))
+    return curves
+
+
+def _science_search(nvidia_smi: str) -> tuple:
+    """(c): the full-width search against its CPU float64 misfit."""
+    import importlib
+
+    from das_diff_veh_tpu_torch.config import BootstrapConfig, DispersionConfig
+    from das_diff_veh_tpu_torch.inversion import (invert_multirun, make_misfit_fn,
+                                                  speed_model_spec)
+
+    I = importlib.import_module("das_diff_veh_tpu_torch.inversion.invert")
+    parity = json.loads((REPO / "INVERSION_PARITY.json").read_text())["700_mid_speed"]
+    spec = speed_model_spec()
+    x_ref = torch.tensor(parity["x_best"], dtype=torch.float64, device="cuda")
+    model = spec.to_model(x_ref)
+    curves = _science_curves(model, DispersionConfig().freqs(), BootstrapConfig())
+    n_pts = sum(len(c.period) for c in curves)
+    kw = {k: v for k, v in SCIENCE_SEARCH.items()}
+    out = {"points": n_pts, "points_per_curve": [len(c.period) for c in curves]}
+    results = {}
+    for name, dtype in (("f64", torch.float64), ("f32", torch.float32)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = invert_multirun(spec, curves, dtype=dtype, device="cuda", **kw)
+        torch.cuda.synchronize()
+        hist = res.history.double().cpu().numpy()
+        results[name] = res
+        out[name] = {"wall_s": time.perf_counter() - t0, "misfit": float(res.misfit),
+                     "device_memory_peak_bytes": torch.cuda.max_memory_allocated(),
+                     "history_first_last": [float(hist[0]), float(hist[-1])],
+                     "history_non_increasing": bool((np.diff(hist) <= 0).all())}
+        if not out[name]["history_non_increasing"]:
+            raise AssertionError(f"{name} search: the gbest history rose")
+    x_best = results["f64"].x_best
+    f_card = make_misfit_fn(spec, curves, n_grid=400, n_subdiv=1, invalid="truncate")
+    m_card = float(f_card(x_best))
+    m_cpu = float(f_card(x_best.cpu()))
+    m_f32 = float(make_misfit_fn(spec, curves, n_grid=400, n_subdiv=1, dtype=torch.float32,
+                                 invalid="truncate")(x_best.float()))
+    rel = abs(m_card - m_cpu) / abs(m_cpu)
+    out["misfit_at_x_best"] = {"card_f64": m_card, "cpu_f64": m_cpu, "card_f32": m_f32,
+                               "rel_card_vs_cpu": rel}
+    if not rel <= SCIENCE_MISFIT_TOL:
+        raise AssertionError(f"misfit at x_best: card {m_card!r} vs CPU {m_cpu!r} ({rel:.3e})")
+    warm = invert_multirun(spec, curves, device="cuda", x0=x_best[None],
+                           **{**kw, "maxiter": 2, "n_refine_steps": 2, "seed": 7})
+    out["warm_start_misfit"] = float(warm.misfit)
+    if not float(warm.misfit) <= m_card:
+        raise AssertionError(f"warm start from x_best ended at {float(warm.misfit)!r} > {m_card!r}")
+
+    # one PSO iteration and one refine step at this width, timed and profiled
+    fn = I._as_data_misfit(f_card)
+    gens = I._run_generators(np.arange(kw["n_runs"]), "cuda")
+    lead, shape = (kw["n_runs"],), (kw["popsize"], spec.n_params)
+    draw = lambda s: I._draw(gens, lead, s, torch.float64, "cuda")
+    state = I.pso_init(fn, draw(shape), draw(shape))
+    step = lambda st: I.pso_step(fn, st, draw((2,) + shape))[0]
+    state = step(state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        state = step(state)
+    torch.cuda.synchronize()
+    out["s_per_pso_iteration"] = (time.perf_counter() - t0) / 3
+    holder = {"state": state}
+    prof = profile_call("one PSO iteration (3 runs x 50, 400-point grid, float64)",
+                        lambda: holder.update(state=step(holder["state"])))
+    out["pso_iteration_profile"] = {"wall_ms": prof["wall_ms"],
+                                    "device_busy_share": prof["device_busy_ms"] / prof["wall_ms"],
+                                    "kernels_and_copies": prof["device_ops"],
+                                    "top": prof["top"][:8]}
+    starts = I._pool_starts(holder["state"], kw["n_refine_starts"])
+    z = torch.logit(torch.clamp(starts, 1e-4, 1 - 1e-4))
+    ast = I.adam_init(z)
+    z, ast, _ = I.refine_step(fn, z, ast)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        z, ast, _ = I.refine_step(fn, z, ast)
+    torch.cuda.synchronize()
+    out["s_per_refine_step"] = (time.perf_counter() - t0) / 3
+    out["refine_starts"] = int(starts.shape[0])
+    log(f"full-width search ({nvidia_smi}): {out}")
+    return out, spec, curves, x_ref
+
+
+def _science_fleet(spec, curves, x_ref, nvidia_smi: str) -> dict:
+    """(d): a fleet of 8 noisy copies of (c)'s curves on one slot and on 4
+    slots of the card, then the monitor against an epoch whose top layer is
+    20 % faster."""
+    from das_diff_veh_tpu_torch.config import BootstrapConfig, DispersionConfig
+    from das_diff_veh_tpu_torch.inversion import (Curve, LayeredModel, density_gardner_linear,
+                                                  invert_fleet, vp_from_poisson)
+    from das_diff_veh_tpu_torch.obs.flight import FlightRecorder
+    from das_diff_veh_tpu_torch.obs.registry import MetricsRegistry
+    from das_diff_veh_tpu_torch.parallel import make_mesh
+    from das_diff_veh_tpu_torch.pipeline.timelapse import FleetVsMonitor
+
+    rng = np.random.default_rng(11)
+    sets = [[Curve(c.period, c.velocity + rng.normal(0.0, c.uncertainty), c.mode, c.weight,
+                   c.uncertainty) for c in curves] for _ in range(SCIENCE_TARGETS)]
+    out = {}
+    runs = {}
+    for name, mesh in (("one_slot", None), ("mesh4", make_mesh(4, device="cuda"))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[name] = invert_fleet(spec, sets, mesh=mesh, device="cuda", **SCIENCE_FLEET)
+        out[f"{name}_wall_s"] = time.perf_counter() - t0
+    a, b = runs["one_slot"], runs["mesh4"]
+    gaps = {f: float(np.nanmax(np.abs(np.asarray(x, float) - np.asarray(y, float))))
+            for f, x, y in zip(a._fields, a, b)}
+    out["mesh_equal"] = all(np.array_equal(x, y, equal_nan=True) for x, y in zip(a, b))
+    out["mesh_max_gap"] = max(gaps.values())
+    if not out["mesh_equal"]:
+        log(f"fleet on 4 slots vs one slot: largest gap {gaps} - the refinement's gradient "
+            f"sums reduce in another order at another batch size")
+        if not out["mesh_max_gap"] <= 1e-12:
+            raise AssertionError(f"the fleet on 4 slots differs from one slot: {gaps}")
+    if not (np.all(a.vs_lo <= a.vs) and np.all(a.vs <= a.vs_hi)):
+        raise AssertionError("a target's credible interval misses its point estimate")
+    vs = torch.as_tensor(a.vs[0])
+    # the monitor: the top layer 20 % faster
+    m = spec.to_model(x_ref)
+    vs2 = m.vs.clone()
+    vs2[0] = 1.2 * vs2[0]
+    vp2 = vp_from_poisson(vs2, 0.4375)
+    shifted = LayeredModel(m.thickness, vp2, vs2, density_gardner_linear(vp2))
+    shifted_sets = [_science_curves(shifted, DispersionConfig().freqs(), BootstrapConfig(),
+                                    noise_seed=100 + t) for t in range(SCIENCE_TARGETS)]
+    epoch = invert_fleet(spec, shifted_sets, device="cuda", **SCIENCE_FLEET)
+    reg, flight = MetricsRegistry(), FlightRecorder(capacity=256)
+    mon = FleetVsMonitor(a, registry=reg, flight=flight)
+    quiet = mon.observe(b)
+    events = mon.observe(epoch)
+    shifts = sum(child.value for _, child in reg.get("das_fleet_vs_shift_total").children())
+    recs = [r for r in flight.records() if r["kind"] == "vs_shift"]
+    out.update({"baseline_vs_km_s": a.vs.tolist(), "baseline_misfit": a.misfit.tolist(),
+                "shifted_top_vs_km_s": epoch.vs[:, 0].tolist(),
+                "unshifted_events": len(quiet), "shifted_events": len(events),
+                "shifted_layers": sorted({e.layer for e in events}),
+                "shift_total": shifts, "vs_shift_records": len(recs),
+                "epochs_total": reg.get("das_fleet_vs_epochs_total").value})
+    log(f"fleet of {SCIENCE_TARGETS} ({nvidia_smi}): {out}; top-layer Vs of target 0 "
+        f"{float(vs[0]):.4f} km/s")
+    if quiet or not events or 0 not in out["shifted_layers"] or shifts < 1 or not recs:
+        raise AssertionError(f"monitor: unshifted {len(quiet)} events, shifted {len(events)} "
+                             f"({out['shifted_layers']}), counter {shifts}, records {len(recs)}")
+    return out
+
+
+def _science_sensitivity(spec, x_ref) -> dict:
+    """phase_sensitivity of (c)'s model at 3 periods, card against CPU."""
+    from das_diff_veh_tpu_torch.inversion import phase_sensitivity
+
+    model = spec.to_model(x_ref)
+    cpu = spec.to_model(x_ref.cpu())
+    gaps = []
+    for period in (1 / 4.0, 1 / 8.0, 1 / 15.0):
+        k_card = phase_sensitivity(model, period).kernel
+        k_cpu = phase_sensitivity(cpu, period).kernel
+        gaps.append(float(np.abs(k_card - k_cpu).max()))
+    log(f"phase_sensitivity at 4, 8, 15 Hz, card vs CPU float64: max abs {gaps}")
+    if not max(gaps) <= SCIENCE_SENS_TOL:
+        raise AssertionError(f"sensitivity kernels differ by {gaps}")
+    return {"max_abs_err": gaps}
+
+
+def phase_science(nvidia_smi: str) -> dict:
+    """Phase 17: the science path from the gathers to a Vs profile."""
+    t0 = time.perf_counter()
+    reset_counts()
+    WATCH.phase = "17 science: bootstrap"
+    boot = _science_bootstrap(nvidia_smi)
+    WATCH.phase = "17 science: truth scene"
+    truth = _science_truth(nvidia_smi)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    log(f"phase 17 launches: {launches}")
+    if launches != SCIENCE_LAUNCHES:
+        raise AssertionError(f"phase 17 launched {launches}, expected {SCIENCE_LAUNCHES}")
+    torch.cuda.empty_cache()
+    WATCH.phase = "17 science: full-width search"
+    search, spec, curves, x_ref = _science_search(nvidia_smi)
+    torch.cuda.empty_cache()
+    WATCH.phase = "17 science: fleet"
+    fleet = _science_fleet(spec, curves, x_ref, nvidia_smi)
+    sens = _science_sensitivity(spec, x_ref)
+    torch.cuda.empty_cache()
+    out = {"device": nvidia_smi, "launches": launches, "bootstrap": boot, "truth": truth,
+           "search": search, "reduced": SCIENCE_REDUCED, "fleet": fleet, "sensitivity": sens,
+           "phase_s": time.perf_counter() - t0}
+    log(f"science phase ({nvidia_smi}) took {out['phase_s']:.1f} s")
+    return out
+
+
+def _science_line(sc: dict) -> dict:
+    """The ``science`` JSON line: phase 17's checks, walls and costs."""
+    b, t, se, f = sc["bootstrap"], sc["truth"], sc["search"], sc["fleet"]
+    return {"device": sc["device"], "phase_s": sc["phase_s"], "launches": sc["launches"],
+            "bootstrap_image_peak_rel_err": b["image_peak_rel_err"],
+            "raw_picks": b["raw_picks"], "f32_picks": b["f32_picks"],
+            "bootstrap_wall_s": b["bootstrap_wall_s"],
+            "convergence_wall_s": b["convergence_wall_s"],
+            "convergence_rel_err": b["convergence_rel_err"],
+            "truth": {k: t[k] for k in ("vs_km_s", "thickness_km", "misfit",
+                                         "closure_median_rel_err", "wall_s")},
+            "search": {k: se[k] for k in ("misfit_at_x_best", "warm_start_misfit",
+                                           "s_per_pso_iteration", "s_per_refine_step")}
+            | {d: {k: se[d][k] for k in ("wall_s", "misfit", "device_memory_peak_bytes")}
+               for d in ("f64", "f32")}
+            | {"pso_iteration_busy_share": se["pso_iteration_profile"]["device_busy_share"],
+               "pso_iteration_kernels": se["pso_iteration_profile"]["kernels_and_copies"]},
+            "reduced": sc["reduced"],
+            "fleet": {k: f[k] for k in ("one_slot_wall_s", "mesh4_wall_s", "mesh_equal",
+                                         "mesh_max_gap", "unshifted_events", "shifted_events",
+                                         "shift_total", "vs_shift_records")},
+            "sensitivity_max_abs_err": max(sc["sensitivity"]["max_abs_err"])}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement to this JSON file")
     ap.add_argument("--profile", action="store_true",
                     help="also profile one warm chunk of each kind and one warm "
                          "all-pairs call with torch.profiler")
+    ap.add_argument("--science-only", action="store_true",
+                    help="run phases 1, 2 and 17 only (a quick check of the science path)")
     args = ap.parse_args()
+    t_script = time.perf_counter()
     sys.path.insert(0, str(REPO))
     results = {}
     try:
@@ -2158,6 +2651,16 @@ def main() -> int:
         smi = results["device"]["nvidia_smi"]
         WATCH.phase = "2 build"
         results["build"] = phase_build()
+        if args.science_only:
+            results["science"] = phase_science(smi)
+            log(json.dumps({"science": _science_line(results["science"])}))
+            log(f"script wall {time.perf_counter() - t_script:.1f} s")
+            log(smi)
+            print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                     "kind": results["device"]["kind"],
+                                                     "count": results["device"]["count"]}}),
+                  flush=True)
+            return 0
         WATCH.phase = "3 kernel vs plain"
         results["kernel_vs_plain"] = phase_kernel_vs_plain()
         section = _main_path_inputs()
@@ -2205,6 +2708,8 @@ def main() -> int:
                                                        smi)
         # B3 again at the ring's receiver-shard shape
         results["times"]["kernels"].append(shard_kernel)
+        torch.cuda.empty_cache()
+        results["science"] = phase_science(smi)
         stray = [d for d in WATCH.seen if not d["planted"]]
         log(f"demotions over the run: {len(WATCH.seen)}, planted by phase 16: "
             f"{sum(d['planted'] for d in WATCH.seen)}, not planted: {stray}")
@@ -2266,6 +2771,8 @@ def main() -> int:
         "stack_d4_image_peak_rel": me["stack"][f"d{MESH_SLOTS}"]["image_peak_rel"],
         "demotions": [(d["phase"], d["component"]) for d in results["demotions"]],
         "phase_s": me["phase_s"]}}))
+    log(json.dumps({"science": _science_line(results["science"])}))
+    log(f"script wall {time.perf_counter() - t_script:.1f} s")
     log(dev["nvidia_smi"])
     log(json.dumps({"kernels": results["times"]["kernels"]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev["kind"],

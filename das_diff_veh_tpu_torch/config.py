@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -279,6 +279,37 @@ class ObsConfig:
 
 
 @dataclass(frozen=True)
+class BootstrapConfig:
+    """Bootstrap uncertainty of the dispersion ridges (``analysis.bootstrap``;
+    the reference's apis/imaging_classes.py:8-48)."""
+
+    bt_times: int = 30
+    bt_size: int = 60
+    sigma: Tuple[float, ...] = (25.0, 50.0, 50.0, 50.0)
+    ref_freq_idx: Tuple[int, ...] = (80, 130, 170, 170)
+    freq_lb: Tuple[float, ...] = (2.5, 10.0, 14.0, 16.0)
+    freq_ub: Tuple[float, ...] = (14.0, 15.0, 19.0, 20.0)
+    vel_max: float = 800.0
+
+
+@dataclass(frozen=True)
+class FleetInversionConfig:
+    """How ``inversion.fleet.invert_fleet`` cuts its (targets x runs x pop)
+    working set.  Execution knobs, not physics."""
+
+    target_chunk: int = 0
+    """Targets inverted per call (0 = the whole fleet); each chunk is padded
+    to this size by repeating a real target, and with a mesh rounded up to a
+    multiple of its slots."""
+
+    eval_chunk: int = 0
+    """Population members whose misfits evaluate together (0 = all)."""
+
+    refine_chunk: int = 0
+    """Refinement starts per batch of the Adam stage (0 = all)."""
+
+
+@dataclass(frozen=True)
 class RingConfig:
     """Knobs of the all-pairs ring over a device mesh (``parallel.allpairs``).
 
@@ -329,7 +360,9 @@ class PipelineConfig:
     gather: GatherConfig = field(default_factory=GatherConfig)
     dispersion: DispersionConfig = field(default_factory=DispersionConfig)
     imaging: ImagingConfig = field(default_factory=ImagingConfig)
+    bootstrap: BootstrapConfig = field(default_factory=BootstrapConfig)
     health: HealthConfig = field(default_factory=HealthConfig)
+    fleet: FleetInversionConfig = field(default_factory=FleetInversionConfig)
     max_windows: int = 64             # per-chunk window capacity
     chunk_pipeline: str = "staged"    # or "fused": one CUDA graph per geometry
 

@@ -42,7 +42,7 @@ def device_constant(key: Hashable, build: Callable[[], np.ndarray], dtype: torch
     full = (key, dtype, torch.device(device))
     out = _CACHE.get(full)
     if out is None:
-        out = torch.tensor(np.ascontiguousarray(build()), dtype=dtype, device=device)
+        out = torch.tensor(np.array(build()), dtype=dtype, device=device)
         with _LOCK:
             out = _CACHE.setdefault(full, out)
     return out

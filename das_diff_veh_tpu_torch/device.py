@@ -12,6 +12,7 @@ about three decimal digits; the JAX package's float32 tier contracts at
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -26,3 +27,16 @@ def resolve_device(device=None) -> torch.device:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
     return dev
+
+
+def on_device(x, device=None, dtype=None) -> torch.Tensor:
+    """``x`` as a tensor: a tensor stays on its own device when ``device`` is
+    ``None``; anything else (numpy, lists, or a tensor with an explicit
+    ``device``) goes to ``resolve_device(device)``, the card by default.
+    ``dtype`` casts when given; numpy float64 stays float64."""
+    if isinstance(x, torch.Tensor) and device is None:
+        return x if dtype is None else x.to(dtype)
+    dev = resolve_device(device)
+    if isinstance(x, torch.Tensor):
+        return x.to(device=dev, dtype=dtype)
+    return torch.as_tensor(np.array(x), device=dev, dtype=dtype)

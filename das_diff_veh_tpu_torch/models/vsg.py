@@ -171,17 +171,26 @@ def stack_gathers(gathers: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
 def gather_disp_image(xcf: torch.Tensor, offsets: np.ndarray, dt: float,
                       dx: float, cfg: DispersionConfig = DispersionConfig(),
                       start_x: float | None = None,
-                      end_x: float | None = None) -> torch.Tensor:
+                      end_x: float | None = None,
+                      enhance: bool = False) -> torch.Tensor:
     """Dispersion image of (a stack of) gathers over an offset sub-range:
     (nvel, nfreq).  ``cfg.method``: ``"fk"`` (2-D FFT) or ``"phase_shift"``
     (slant stack, direction -1: the gather's offsets ascend toward the
-    virtual source at 0); both honour ``cfg.precision``."""
+    virtual source at 0); both honour ``cfg.precision``.  ``enhance=True``
+    applies the reference's CLAHE + blur (``ops.enhance.fv_map_enhance``) to
+    one image and returns int32 0..255."""
     offsets = np.asarray(offsets)
     sxi = int(np.abs(offsets - (start_x if start_x is not None else offsets[0])).argmin())
     exi = int(np.abs(offsets - (end_x if end_x is not None else offsets[-1])).argmin())
     sliced = xcf[..., sxi:exi + 1, :]
     if cfg.method == "phase_shift":
-        return fv_map_phase_shift(sliced, dx, dt, cfg.freqs(), cfg.vels(), direction=-1.0,
-                                  whiten=False, precision=cfg.precision)
-    return fv_map_fk(sliced, dx, dt, cfg.freqs(), cfg.vels(), norm=cfg.norm,
-                     sg_window=cfg.sg_window, sg_order=cfg.sg_order, precision=cfg.precision)
+        img = fv_map_phase_shift(sliced, dx, dt, cfg.freqs(), cfg.vels(), direction=-1.0,
+                                 whiten=False, precision=cfg.precision)
+    else:
+        img = fv_map_fk(sliced, dx, dt, cfg.freqs(), cfg.vels(), norm=cfg.norm,
+                        sg_window=cfg.sg_window, sg_order=cfg.sg_order,
+                        precision=cfg.precision)
+    if enhance:
+        from das_diff_veh_tpu_torch.ops.enhance import fv_map_enhance
+        img = fv_map_enhance(img)
+    return img

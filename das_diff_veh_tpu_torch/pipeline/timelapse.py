@@ -180,3 +180,63 @@ def process_chunk(section: DasSection, cfg: Optional[PipelineConfig] = None,
     return ChunkResult(disp_image=img, vsg_stack=vsg_stack,
                        n_windows=int(n_windows), tracks=tracks,
                        batch=batch, qs_batch=qs_batch, health=health)
+
+
+class FleetVsMonitor:
+    """Vs change detection over time-lapse fleet inversions (the JAX
+    package's ``FleetVsMonitor``).
+
+    Each epoch's :class:`~das_diff_veh_tpu_torch.inversion.fleet.FleetResult`
+    is compared against the baseline's credible intervals
+    (``detect_vs_shifts``); the registry gets
+    ``das_fleet_vs_shift_total{target}`` (one per shifted layer),
+    ``das_fleet_vs_alarm_active{target}`` (1 while the latest epoch has a
+    layer out of its interval), ``das_fleet_vs_epochs_total``, and an attached
+    flight recorder a ``"vs_shift"`` record per event."""
+
+    def __init__(self, baseline, registry=None, flight=None, target_names=None):
+        from das_diff_veh_tpu_torch.obs.registry import default_registry
+        self.baseline = baseline
+        self.registry = registry if registry is not None else default_registry()
+        self.flight = flight
+        n_t = baseline.vs.shape[0]
+        self.target_names = (tuple(str(t) for t in target_names) if target_names is not None
+                             else tuple(str(i) for i in range(n_t)))
+        if len(self.target_names) != n_t:
+            raise ValueError(f"{len(self.target_names)} target names for "
+                             f"{n_t} baseline targets")
+        self._shifts = self.registry.counter(
+            "das_fleet_vs_shift_total",
+            "fleet Vs layer shifts beyond the baseline credible interval", labels=("target",))
+        self._alarm = self.registry.gauge(
+            "das_fleet_vs_alarm_active",
+            "1 while the latest epoch has an out-of-interval Vs layer", labels=("target",))
+        self._epochs = self.registry.counter("das_fleet_vs_epochs_total",
+                                             "fleet monitoring epochs observed")
+        for name in self.target_names:
+            self._alarm.labels(target=name).set(0.0)
+
+    def observe(self, current):
+        """Compare one epoch against the baseline; returns the events."""
+        from das_diff_veh_tpu_torch.inversion.fleet import detect_vs_shifts
+        events = detect_vs_shifts(self.baseline, current)
+        self._epochs.inc()
+        shifted = set()
+        for ev in events:
+            name = self.target_names[ev.target]
+            shifted.add(ev.target)
+            self._shifts.labels(target=name).inc()
+            if self.flight is not None:
+                self.flight.record("vs_shift", target=name, layer=ev.layer, vs=ev.vs,
+                                   lo=ev.lo, hi=ev.hi)
+        for t, name in enumerate(self.target_names):
+            self._alarm.labels(target=name).set(1.0 if t in shifted else 0.0)
+        return events
+
+    def rebase(self, baseline):
+        """Adopt a new baseline epoch; clears every alarm."""
+        if baseline.vs.shape != self.baseline.vs.shape:
+            raise ValueError("rebase needs the same fleet geometry")
+        self.baseline = baseline
+        for name in self.target_names:
+            self._alarm.labels(target=name).set(0.0)

@@ -1,8 +1,9 @@
 """Tests of the port that need the card: the CUDA kernels against their plain
 PyTorch versions, a small chunk on the card against the CPU, the batch loop,
-the fused chunk's CUDA graph against the staged chunk, and the mesh (the
+the fused chunk's CUDA graph against the staged chunk, the mesh (the
 all-pairs ring and the sharded stack on slots of the card, a gather
-demotion's recapture).
+demotion's recapture), and the science path's forward model, misfit and
+CLAHE on the card against the CPU.
 
 They carry the ``cuda`` marker and skip without a CUDA device.  The file
 imports neither JAX nor the JAX package, so on a machine without JAX it runs
@@ -692,3 +693,68 @@ def test_gather_demotion_recaptures_without_b1(card):
     finally:
         degrade.set_ladder(None)
         F.clear_programs()
+
+
+# -- the science path: card against CPU (float64 on both) ------------------------
+
+def _science_problem(dev):
+    import numpy as np
+
+    from das_diff_veh_tpu_torch.inversion import Curve, speed_model_spec
+    spec = speed_model_spec()
+    x = torch.as_tensor(np.random.default_rng(4).uniform(0.2, 0.8, (5, 12)), device=dev)
+    T = np.asarray(1.0 / np.arange(2.0, 24.0, 0.5))
+    return spec, x, T, Curve
+
+
+@pytest.mark.parametrize("mode", [0, 3, 4])
+def test_phase_velocity_card_equals_cpu(card, mode):
+    import numpy as np
+
+    from das_diff_veh_tpu_torch.inversion import phase_velocity
+    spec, x, T, _ = _science_problem(card)
+    got = phase_velocity(T, spec.to_model(x), mode=mode, n_grid=300).cpu().numpy()
+    want = phase_velocity(T, spec.to_model(x.cpu()), mode=mode, n_grid=300).numpy()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    ok = ~np.isnan(want)
+    np.testing.assert_allclose(got[ok], want[ok], rtol=1e-10, atol=0)
+    # one member alone gives its value in the batch, bit for bit
+    one = phase_velocity(T, spec.to_model(x[2]), mode=mode, n_grid=300).cpu().numpy()
+    np.testing.assert_array_equal(np.nan_to_num(one), np.nan_to_num(got[2]))
+
+
+@pytest.mark.parametrize("invalid", ["penalty", "truncate"])
+def test_misfit_card_equals_cpu(card, invalid):
+    import numpy as np
+
+    from das_diff_veh_tpu_torch.inversion import make_misfit_fn, phase_velocity
+    spec, x, T, Curve = _science_problem(card)
+    ref = spec.to_model(torch.full((12,), 0.5, dtype=torch.float64))
+    c0 = phase_velocity(T, ref, mode=0, n_grid=300).numpy()
+    c3 = phase_velocity(T, ref, mode=3, n_grid=300).numpy()
+    ok = np.isfinite(c3)
+    curves = [Curve(T, c0, 0, 2.0, 0.02 * c0), Curve(T[ok], c3[ok], 3, 1.0, 0.02 * c3[ok])]
+    f = make_misfit_fn(spec, curves, n_grid=300, invalid=invalid)
+    np.testing.assert_allclose(f(x).cpu().numpy(), f(x.cpu()).numpy(), rtol=1e-10)
+    # the gradient the refinement takes: the root's gradient divides the
+    # secular function's derivative by a secant across a bracket of ~0.1 m/s,
+    # whose two values carry the determinant's cancellation noise (~1e-12 of
+    # its peak on these 6-layer models), so it agrees to ~1e-6 (3.7e-6 on
+    # the H100), not to the misfit's 1e-10
+    z = x.clone().requires_grad_(True)
+    f(z).sum().backward()
+    zc = x.cpu().clone().requires_grad_(True)
+    f(zc).sum().backward()
+    np.testing.assert_allclose(z.grad.cpu().numpy(), zc.grad.numpy(), rtol=1e-5, atol=1e-9)
+
+
+def test_clahe_and_enhance_card_equal_cpu(card):
+    import numpy as np
+
+    from das_diff_veh_tpu_torch.ops.enhance import clahe_u8, fv_map_enhance
+    rng = np.random.default_rng(7)
+    img = torch.as_tensor((np.abs(rng.standard_normal((1000, 242))) * 60).clip(0, 255)
+                          .astype(np.int32))
+    assert torch.equal(clahe_u8(img.to(card)).cpu(), clahe_u8(img))
+    fv = torch.as_tensor(np.abs(rng.standard_normal((1000, 242))) + 0.05)
+    assert torch.equal(fv_map_enhance(fv.to(card)).cpu(), fv_map_enhance(fv))
