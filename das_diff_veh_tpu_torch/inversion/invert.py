@@ -33,8 +33,7 @@ import torch
 
 from das_diff_veh_tpu_torch.device import resolve_device
 from das_diff_veh_tpu_torch.inversion.curves import Curve
-from das_diff_veh_tpu_torch.inversion.forward import (LayeredModel, _pairwise_sum,
-                                                      density_gardner_linear, phase_velocity,
+from das_diff_veh_tpu_torch.inversion.forward import (LayeredModel, density_gardner_linear,
                                                       vp_from_poisson)
 
 INVALID_RESIDUAL = 5.0  # penalty residual of a below-cutoff overtone sample
@@ -125,53 +124,25 @@ def make_misfit_fn(spec: ModelSpec, curves: Sequence[Curve], n_grid: int = 400,
     """``misfit(x01) -> (*B,)`` for unit-cube vectors ``(*B, n_params)``, on
     their device; autograd flows through it.
 
-    All curves' (period, mode) samples are concatenated into one root solve;
-    each curve's RMSE is a slice of it.  ``dtype`` pins the observations'
-    precision (None: float64).  ``invalid``: ``"penalty"`` (a missing
-    overtone point counts ``INVALID_RESIDUAL``) or ``"truncate"`` (it drops
-    out of its curve's mean)."""
-    if invalid not in ("penalty", "truncate"):
-        raise ValueError(f"invalid must be 'penalty' or 'truncate', got {invalid!r}")
-    dtype = dtype or torch.float64
-    baked = [(np.asarray(c.period, dtype=np.float64), np.asarray(c.velocity, dtype=np.float64),
-              np.asarray(c.uncertainty if c.uncertainty is not None
-                         else np.ones_like(c.velocity), dtype=np.float64),
-              int(c.mode), float(c.weight)) for c in curves]
-    wsum = sum(w for *_, w in baked)
-    host = (np.concatenate([p for p, *_ in baked]),
-            np.concatenate([np.full(len(p), m) for p, _, _, m, _ in baked]),
-            np.concatenate([v for _, v, *_ in baked]),
-            np.concatenate([u for _, _, u, *_ in baked]))
-    slices = np.cumsum([0] + [len(p) for p, *_ in baked])
+    The curves are packed once as one target of ``fleet.pack_curve_sets``
+    and scored by ``fleet.make_packed_misfit_fn``: all (period, mode)
+    samples in one root solve, each curve's RMSE a masked sum over its
+    points.  ``dtype`` pins the observations' precision (None: float64).
+    ``invalid``: ``"penalty"`` (a missing overtone point counts
+    ``INVALID_RESIDUAL``) or ``"truncate"`` (it drops out of its curve's
+    mean)."""
+    # fleet builds on this module, so it is imported when the objective is made
+    from das_diff_veh_tpu_torch.inversion.fleet import make_packed_misfit_fn, pack_curve_sets
+
+    packed = make_packed_misfit_fn(spec, n_grid=n_grid, n_subdiv=n_subdiv, invalid=invalid)
+    host = pack_curve_sets([curves], dtype=dtype, device="cpu").map(lambda a: a[0])
     on_device = {}
 
-    def consts(dev):
-        if dev not in on_device:
-            per, mode, vel, unc = host
-            on_device[dev] = (torch.as_tensor(per, device=dev).to(dtype),
-                              torch.as_tensor(mode, device=dev),
-                              torch.as_tensor(vel, device=dev).to(dtype),
-                              torch.as_tensor(unc, device=dev).to(dtype))
-        return on_device[dev]
-
     def misfit(x01: torch.Tensor) -> torch.Tensor:
-        period_all, mode_all, vel_all, unc_all = consts(x01.device)
-        pred = phase_velocity(period_all, spec.to_model(x01), mode=mode_all, n_grid=n_grid,
-                              n_subdiv=n_subdiv)
-        fin = torch.isfinite(pred)
-        r = torch.where(fin, (vel_all - pred) / unc_all, INVALID_RESIDUAL)
-        total = 0.0
-        for i, (*_, w) in enumerate(baked):
-            ri, fi = r[..., slices[i]:slices[i + 1]], fin[..., slices[i]:slices[i + 1]]
-            if invalid == "truncate":
-                n_fin = fi.sum(-1)
-                ss = _pairwise_sum(torch.where(fi, ri * ri, 0.0))
-                rmse = torch.sqrt(ss / torch.clamp(n_fin, min=1))
-                rmse = torch.where(n_fin > 0, rmse, INVALID_RESIDUAL)
-            else:
-                rmse = torch.sqrt(_pairwise_sum(ri * ri) / ri.shape[-1])
-            total = total + w * rmse
-        return total / wsum
+        dev = x01.device
+        if dev not in on_device:
+            on_device[dev] = host.map(lambda a: a.to(dev))
+        return packed(x01, on_device[dev])
 
     return misfit
 

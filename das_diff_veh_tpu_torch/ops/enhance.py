@@ -6,13 +6,14 @@ tileGridSize=(100, 10)) -> 10x10 blur).
 OpenCV's CLAHE as integer tensor work: reflect-101 padding so the tiles
 divide the image, one ``bincount`` over ``tile*256 + value`` for every
 tile's histogram, the clip and OpenCV's redistribution of the excess, the
-LUTs (float64 ``round(cdf * 255 / area)`` as in the JAX package), then
-per-pixel bilinear interpolation between the four neighbouring LUTs in exact
-integer arithmetic: the weights are rationals with denominator 2 * tile
-size, so the interpolated value times 4 * tile area is an integer and is
-rounded half to even exactly, on every device.  The JAX package
-interpolates in float64, where an exact tie (a value of k + 0.5) rounds
-either way with its last bit; everywhere else the two agree.
+LUTs (float64 ``round(cdf * 255 / area)``), then per-pixel bilinear
+interpolation between the four neighbouring LUTs in float64, computed as
+the JAX package's compiled CPU program computes it: XLA turns the division
+by the tile size into a product with its reciprocal and fuses each product
+with the sum that follows (a fused multiply-add, one rounding).  The port
+evaluates those multiply-adds exactly (:func:`_fma`, from error-free
+transformations), so it rounds the same float64 values to the same
+integers on every device.
 
 The box blur sums each 10x10 patch exactly (integer values, float64) and
 divides by the patch area, so its ``round`` sees the exact mean.  The JAX
@@ -40,6 +41,43 @@ def _pad_reflect101(img: torch.Tensor, pad_h: int, pad_w: int) -> torch.Tensor:
         img = torch.cat([img, img[:, -1 - n:-1].flip(1)], dim=1)
         pad_w -= n
     return img
+
+
+_SPLITTER = 134217729.0   # 2**27 + 1: Veltkamp's split of a float64
+
+
+def _two_sum(a: torch.Tensor, b: torch.Tensor) -> tuple:
+    """``(s, e)`` with ``s = fl(a + b)`` and ``s + e = a + b`` exactly."""
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def _two_prod(a: torch.Tensor, b: torch.Tensor) -> tuple:
+    """``(p, e)`` with ``p = fl(a * b)`` and ``p + e = a * b`` exactly
+    (Dekker's product on Veltkamp's halves)."""
+    def split(x):
+        c = _SPLITTER * x
+        hi = c - (c - x)
+        return hi, x - hi
+    p = a * b
+    ah, al = split(a)
+    bh, bl = split(b)
+    return p, ((ah * bh - p) + ah * bl + al * bh) + al * bl
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` rounded once, in float64 with no fused instruction:
+    Boldo and Melquiond's emulated FMA, whose inner sum is rounded to odd."""
+    uh, ul = _two_prod(a, b)
+    th, tl = _two_sum(c, uh)
+    v, e = _two_sum(tl, ul)
+    # round to odd: an inexact sum whose last bit is even moves one ulp
+    # toward the exact value
+    even = (v.view(torch.int64) & 1) == 0
+    toward = torch.where(e > 0, torch.inf, -torch.inf).to(v.dtype)
+    v = torch.where((e != 0) & even, torch.nextafter(v, toward), v)
+    return th + v
 
 
 def clahe_u8(img, clip_limit: float = 100.0, tiles: tuple[int, int] = (100, 10),
@@ -81,15 +119,16 @@ def clahe_u8(img, clip_limit: float = 100.0, tiles: tuple[int, int] = (100, 10),
     # LUTs
     scale = 255.0 / area
     luts = torch.clamp(torch.round(torch.cumsum(hist2, dim=1).to(torch.float64) * scale),
-                       0, 255).to(torch.int64)
+                       0, 255)
 
-    # bilinear interpolation between tile LUTs, in exact integers: the
-    # weights are (2i + 1 - th) / (2 th) - floor, so out * 4 th tw is an
-    # integer and its rounding half to even is exact
+    # bilinear interpolation between tile LUTs, with the JAX package's
+    # float64 roundings: the coordinate fma(i + 0.5, 1 / t, -0.5), each
+    # blend fma(a, 1 - w, fl(b * w))
     def axis(n, t):
-        num = 2 * torch.arange(n, device=dev, dtype=torch.int64) + 1 - t
-        lo = torch.div(num, 2 * t, rounding_mode="floor")
-        return lo, num - 2 * t * lo                       # tile below, weight * 2t
+        i = torch.arange(n, device=dev, dtype=torch.float64) + 0.5
+        f = _fma(i, torch.full_like(i, 1.0 / t), torch.full_like(i, -0.5))
+        lo = torch.floor(f)
+        return lo.to(torch.int64), f - lo                 # tile below, weight
     y1, wy = axis(H, th)
     x1, wx = axis(W, tw)
     y1c = torch.clamp(y1, 0, ty - 1)[:, None]
@@ -100,14 +139,11 @@ def clahe_u8(img, clip_limit: float = 100.0, tiles: tuple[int, int] = (100, 10),
     flat = luts.reshape(-1)
     v = img.to(torch.int64)
     lut_at = lambda tyi, txi: flat[(tyi * tx + txi) * 256 + v]
-    top = lut_at(y1c, x1c) * (2 * tw - wx) + lut_at(y1c, x2c) * wx
-    bot = lut_at(y2c, x1c) * (2 * tw - wx) + lut_at(y2c, x2c) * wx
-    num = top * (2 * th - wy) + bot * wy
-    den = 4 * th * tw
-    q = torch.div(num, den, rounding_mode="floor")
-    twice_rem = 2 * (num - q * den)
-    q = q + ((twice_rem > den) | ((twice_rem == den) & (q % 2 == 1))).to(q.dtype)
-    return torch.clamp(q, 0, 255).to(torch.int32)
+    blend = lambda a, b, w: _fma(a, 1 - w, b * w)
+    top = blend(lut_at(y1c, x1c), lut_at(y1c, x2c), wx)
+    bot = blend(lut_at(y2c, x1c), lut_at(y2c, x2c), wx)
+    out = blend(top, bot, wy)
+    return torch.clamp(torch.round(out), 0, 255).to(torch.int32)
 
 
 def box_blur_u8(img, ksize: int = 10, device=None) -> torch.Tensor:

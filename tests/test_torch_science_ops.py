@@ -6,13 +6,15 @@ Inputs are seeded numpy handed to both packages at float64 (conftest runs
 JAX with x64).  The Welch PSD is held at 1e-12 relative, the CWT and the
 picker at 1e-10.
 
-CLAHE and the box blur are integer results of a rounding.  The port rounds
-the exact value (CLAHE's bilinear interpolation in integers, the blur's
-exact patch sums), half to even; the JAX package rounds a float64 (CLAHE)
-or float32 (blur) approximation, so an exact tie (a value of k + 0.5) goes
-either way with its last bit.  So the port is held equal to an exact numpy
-oracle everywhere, and to the JAX package everywhere but at exact ties,
-where the two differ by at most one gray level.
+CLAHE and the box blur are integer results of a rounding.  CLAHE rounds
+the float64 values of the JAX package's compiled CPU program (a reciprocal
+product and fused multiply-adds, which the port evaluates exactly), so it is
+held equal to JAX everywhere, and to an exact numpy oracle everywhere but at
+exact ties (a value of k + 0.5), where float64 may round either way.  The
+port's blur rounds the exact patch mean, the JAX package's a float32
+convolution's, so the blur (and the enhancements that end in it) is held
+equal to the exact oracle everywhere and to JAX everywhere but at exact
+ties, where the two differ by at most one gray level.
 """
 
 import dataclasses
@@ -110,6 +112,8 @@ def _blur_oracle(eq: np.ndarray, ksize: int = 10):
 
 
 def _equal_but_ties(port, jax_out, oracle, ties):
+    """``port`` equals ``oracle``, and ``jax_out`` everywhere but at
+    ``ties``, where the two differ by at most 1."""
     port, jax_out = np.asarray(port), np.asarray(jax_out)
     assert port.dtype == np.int32 and jax_out.dtype == np.int32
     np.testing.assert_array_equal(port, oracle)
@@ -186,10 +190,34 @@ def test_pick_travel_times_matches_jax():
     ((64, 64), (8, 8), 2.0),             # a low clip limit: the residual walk
 ])
 def test_clahe_u8_equals_jax_but_exact_ties(shape, tiles, clip):
+    """Equal to JAX everywhere; equal to the exact oracle but at its ties."""
     img = (np.abs(RNG.standard_normal(shape)) * 60).clip(0, 255).astype(np.int32)
     oracle, ties = _clahe_oracle(img, clip, tiles)
-    _equal_but_ties(PE.clahe_u8(torch.as_tensor(img), clip, tiles),
-                    JE.clahe_u8(jnp.asarray(img), clip, tiles), oracle, ties)
+    got = PE.clahe_u8(torch.as_tensor(img), clip, tiles)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(JE.clahe_u8(jnp.asarray(img), clip,
+                                                                      tiles)))
+    _equal_but_ties(oracle, got.numpy(), oracle, ties)
+
+
+def test_fma_rounds_once():
+    """The emulated fused multiply-add against exact rational arithmetic,
+    on random magnitudes, near-cancelling sums and the dyadic values of
+    CLAHE's blends."""
+    from fractions import Fraction
+    rng = np.random.default_rng(5)
+    n = 3000
+    a = rng.standard_normal(n) * np.exp(rng.uniform(-20, 20, n))
+    b = rng.standard_normal(n) * np.exp(rng.uniform(-20, 20, n))
+    c = -a * b * (1 + rng.standard_normal(n) * np.exp(rng.uniform(-60, 0, n)))
+    c[::3] = rng.standard_normal(len(c[::3]))
+    a[:500] = rng.integers(0, 256, 500)
+    b[:500] = rng.integers(0, 2 ** 20, 500) / 2 ** 20
+    c[:500] = rng.integers(0, 2 ** 30, 500) / 2 ** 31
+    got = PE._fma(*(torch.as_tensor(v) for v in (a, b, c))).numpy()
+    want = np.array([float(Fraction(x) * Fraction(y) + Fraction(z)) for x, y, z in zip(a, b, c)])
+    np.testing.assert_array_equal(got, want)
+    assert (a * b + c != want).any()          # the inputs reach double rounding
 
 
 @pytest.mark.parametrize("shape,ksize", [((120, 90), 10), ((1000, 242), 10), ((50, 40), 7)])
@@ -201,14 +229,11 @@ def test_box_blur_u8_equals_jax_but_exact_ties(shape, ksize):
 
 
 def _enhance_oracle(fv: np.ndarray, tiles=(100, 10)):
-    """(out, ties) of fv_map_enhance: the JAX package's uint8 quantisation
-    (identical in both), then the exact CLAHE and blur; a pixel counts as a
-    tie where CLAHE tied anywhere in its blur patch or the blur tied."""
+    """(out, ties) of fv_map_enhance: the uint8 quantisation and CLAHE as
+    the JAX package computes them (the port equals both), then the exact
+    blur and its ties."""
     u8 = np.clip((fv - fv.min()) / fv.max() * 255.0, 0, 255).astype(np.int32)
-    eq, clahe_ties = _clahe_oracle(u8, 100.0, tiles)
-    out, blur_ties = _blur_oracle(eq)
-    near = _blur_oracle(clahe_ties.astype(np.int32) * 100)[0] > 0
-    return out, blur_ties | near
+    return _blur_oracle(np.asarray(JE.clahe_u8(jnp.asarray(u8), 100.0, tiles)))
 
 
 def test_fv_map_enhance_equals_jax_but_exact_ties():
