@@ -167,18 +167,37 @@ Phases, each of which must pass:
    ``run_directory`` over phase 14's folder (one ``hit`` consult, the image
    equal to the winners set by hand) and a tuned ``ServingEngine``
    (``tuned_warmups`` 1, ``cache_misses`` 0, no build after warm-up); the
-   phase within 120 s and the sweeps within 60 s.
+   phase within 120 s and the sweeps within 60 s;
+20. the mesh across processes: the parent has built the kernels; 4 gloo
+   ranks (``torch.distributed``, a ``file://`` rendezvous, a 120 s group
+   timeout, joined by a deadline, stragglers killed), one slot each on the
+   card, load them (each prints its ``build_seconds``, which must be 0) and
+   run (a) config 4 through ``sharded_all_pairs_peak`` on
+   ``make_mesh(4, device="cuda:0")`` in ring mode (double-buffered and
+   serialized), replicated and bf16: rank 0's matrix ``torch.equal`` to the
+   unsharded call and to phase 16's single-process 4-slot ring (which rank 0
+   recomputes), 160 B3 and 800 B4 launches a rank in ring mode, the bytes
+   sent between ranks a call, each rank's memory peak, and the walls of
+   both rings in turns; (b) the chunk scene's 64-slot window batch through
+   ``sharded_stack_pipeline``, ``torch.equal`` to phase 16's 4-slot stack,
+   2 B1 launches a rank; (c) an 8-target fleet at phase 17's width (maxiter
+   and refine steps cut to 8) equal to one slot (the refined members within
+   1e-12); (d) one ``parallel.ring`` fault planted on rank 1 only through
+   ``resilient_all_pairs_peak``: every rank demotes once (one ``demotion:``
+   line a rank) and rank 0's result equals the unsharded call.  With 2 or
+   more cards, (a) and (b) again over NCCL, one rank a card; on one card a
+   line says why not.
 
 Every demotion of the degradation ladder is printed with its component, its
-error and its phase; a demotion that phase 16 did not plant fails the run.
-The line before the last is a JSON object ``{"kernels": [...]}``, after
-``{"batch": {...}}``, ``{"fused": {...}}``, ``{"mesh": {...}}``,
-``{"science": {...}}``, ``{"serve": {...}}``, ``{"ops": {...}}`` and the
-card's name and power limit (each kernel carries ``launches_phase19``, the
-launches phase 19 added); the last
-line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
-the rest of the repository beside it, the script exits non-zero and prints
-no result.
+error and its phase; a demotion that phases 16 and 20 did not plant fails
+the run.  The line before the last is a JSON object ``{"kernels": [...]}``,
+after ``{"batch": {...}}``, ``{"fused": {...}}``, ``{"mesh": {...}}``,
+``{"science": {...}}``, ``{"serve": {...}}``, ``{"ops": {...}}``,
+``{"multiproc": {...}}`` and the card's name and power limit (each kernel
+carries ``launches_phase19`` and ``launches_phase20``, the launches those
+phases added); the last line is ``{"ok": true, "device": {...}}``.  Without
+a CUDA device, or without the rest of the repository beside it, the script
+exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -3038,7 +3057,7 @@ def _serve_threads(scenes: list) -> dict:
         ImagingComputeFactory(cfg, x_is_channels=False, x_axis=x, device="cuda"),
         MeshServeConfig(serve=ServeConfig(buckets=(SERVE_BUCKETS[0],),
                                           default_deadline_ms=600000.0),
-                        replicas=n), device="cuda").start() for n in (1, SERVE_REPLICAS)}
+                        replicas=n), device="cuda:0").start() for n in (1, SERVE_REPLICAS)}
     walls = {n: [] for n in engines}
     try:
         for _ in range(2):
@@ -3767,6 +3786,402 @@ def _ops_line(op: dict) -> dict:
                 "engine": tu["engine"]}}
 
 
+# Phase 20: the mesh across processes.  The parent has built every kernel
+# (phase 2) and spawns MP_RANKS gloo ranks, one slot each on the first card
+# (``make_mesh(4, device="cuda:0")`` under the group), which load the
+# libraries without building.  (a) config 4 through
+# ``sharded_all_pairs_peak`` in ring mode (double-buffered and serialized),
+# replicated and in the bf16 tier, against the unsharded call and phase
+# 16's single-process 4-slot ring, which rank 0 computes while the other
+# ranks wait; walls of both rings in turns; (b) the chunk scene's 64-slot
+# window batch through ``sharded_stack_pipeline`` against phase 16's 4-slot
+# stack; (c) an 8-target fleet at phase 17's width (depth cut) against one
+# slot; (d) one ``parallel.ring`` fault planted on rank 1 only.  With 2 or
+# more cards, (a) and (b) again over NCCL, one rank per card.
+MP_RANKS = 4
+MP_GROUP_TIMEOUT_S = 120       # a collective waits at most this long
+MP_JOIN_DEADLINE_S = 480       # every rank of a spawn has exited by then
+MP_RING_CONFIGS = (("ring", {}), ("serialized", {"double_buffer": False}),
+                   ("replicated", {"mode": "replicated"}), ("bf16", {"precision": "bf16"}))
+# (c): phase 17's fleet (popsize 50, 8 refine starts, 400-point grid, 2 runs),
+# maxiter and the refine steps cut from 20 to 8 to keep the phase near 120 s
+MP_FLEET = dict(SCIENCE_FLEET, maxiter=8, n_refine_steps=8)
+MP_REDUCED = {"fleet_maxiter": {"run": 8, "phase17": 20, "invert_fleet_default": 200},
+              "fleet_n_refine_steps": {"run": 8, "phase17": 20, "invert_fleet_default": 80}}
+# the fleet's refined members may sum in another order at another batch
+# size (phase 17); every other field is held bit for bit
+FLEET_MEMBER_GAP = 1e-12
+
+
+def _ring_launches(nch: int, slots: int, mode: str = "ring") -> dict:
+    """B3 and B4 launches of one rank driving one slot of a ``slots``-slot
+    ring at the entry's defaults (src_chunk 64, lagmax_block 512)."""
+    shard = -(-nch // slots)
+    chunks = -(-shard // 64)
+    if mode == "replicated":
+        return {**NO_LAUNCHES, "cross_spectra": chunks,
+                "lag_absmax": chunks * -(-slots * shard // 512)}
+    return {**NO_LAUNCHES, "cross_spectra": slots * chunks,
+            "lag_absmax": slots * chunks * -(-shard // 512)}
+
+
+def _sync(devices) -> None:
+    for d in {d for d in devices if d.type == "cuda"}:
+        torch.cuda.synchronize(d)
+
+
+def _add_counts(total: dict, counts: dict, bf16: bool = False) -> None:
+    """Add ``counts`` to ``total``; a bf16 run's B3 launches go to its own
+    tier's row (B4 has one tier)."""
+    for k, v in counts.items():
+        k = "cross_spectra_bf16" if bf16 and k == "cross_spectra" else k
+        total[k] = total.get(k, 0) + v
+
+
+def _sent_bytes() -> float:
+    """The bytes this rank has sent to other ranks (the registry counter)."""
+    from das_diff_veh_tpu_torch.obs.registry import default_registry
+    from das_diff_veh_tpu_torch.parallel.distributed import SENT_BYTES
+
+    fam = default_registry().get(SENT_BYTES)
+    return fam.value if fam is not None else 0.0
+
+
+def _mp_ring(rank: int, mesh, local, launched: dict, barrier) -> tuple:
+    """(a) on one rank: every mode against the references (rank 0), then
+    both rings' walls in turns; returns ``(report, rank 0's references)``."""
+    from das_diff_veh_tpu_torch.config import RingConfig
+    from das_diff_veh_tpu_torch.ops.all_pairs import xcorr_all_pairs_peak
+    from das_diff_veh_tpu_torch.parallel import sharded_all_pairs_peak
+    from das_diff_veh_tpu_torch.workloads import make_ambient_record
+
+    home = mesh.devices[mesh.local_slots[0]]
+    wlen = ALLPAIRS["wlen"]
+    rec = make_ambient_record(ALLPAIRS["nch"], ALLPAIRS["nt"], seed=ALLPAIRS["seed"],
+                              device=home)
+    refs = {}
+    if rank == 0:
+        refs = {"f32": xcorr_all_pairs_peak(rec, wlen, device=home),
+                "bf16": xcorr_all_pairs_peak(rec, wlen, precision="bf16", device=home),
+                "single_process_ring": sharded_all_pairs_peak(rec, wlen, local)}
+    out = {"launches": {}, "sent_bytes": {}, "equal": {}}
+    for name, kw in MP_RING_CONFIGS:
+        cfg = RingConfig(**kw)
+        _sync(mesh.devices[j] for j in mesh.local_slots)
+        barrier()
+        reset_counts()
+        sent0 = _sent_bytes()
+        got = sharded_all_pairs_peak(rec, wlen, mesh, ring=cfg)
+        _sync([home])
+        out["launches"][name] = read_counts()
+        _add_counts(launched, out["launches"][name], bf16=cfg.precision == "bf16")
+        out["sent_bytes"][name] = int(_sent_bytes() - sent0)
+        if rank == 0:
+            ok = (got.is_cuda and got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+                  and torch.equal(got, refs["bf16" if cfg.precision == "bf16" else "f32"]))
+            if name == "ring":
+                ok = ok and torch.equal(got, refs["single_process_ring"])
+            out["equal"][name] = bool(ok)
+        elif got is not None:
+            raise AssertionError(f"rank {rank} got a result from the ring")
+        del got
+    # walls: phase 16's single-process ring on rank 0 (the other ranks wait),
+    # then the ring across the ranks, 3 times in turns
+    walls = {"single_process_ring": [], "multiprocess_ring": []}
+    peak = 0
+    for _ in range(3):
+        barrier()
+        if rank == 0:
+            _sync(local.devices)
+            t0 = time.perf_counter()
+            sharded_all_pairs_peak(rec, wlen, local)
+            _sync(local.devices)
+            walls["single_process_ring"].append((time.perf_counter() - t0) * 1e3)
+        barrier()
+        _sync([home])
+        torch.cuda.reset_peak_memory_stats(home)
+        reset_counts()
+        t0 = time.perf_counter()
+        got = sharded_all_pairs_peak(rec, wlen, mesh)
+        _sync([home])
+        walls["multiprocess_ring"].append((time.perf_counter() - t0) * 1e3)
+        _add_counts(launched, read_counts())
+        peak = max(peak, torch.cuda.max_memory_allocated(home))
+        del got
+    out.update(wall_ms=walls, device_memory_peak_bytes=peak)
+    return out, refs
+
+
+def _mp_stack(rank: int, mesh, local, inputs: dict, launched: dict, barrier) -> dict:
+    """(b) on one rank: the sharded stack against phase 16's 4-slot stack."""
+    from das_diff_veh_tpu_torch.parallel import sharded_stack_pipeline
+
+    batch, g, offs, kw = inputs["stack"]
+    want = sharded_stack_pipeline(batch, g, offs, local, **kw) if rank == 0 else None
+    home = mesh.devices[mesh.local_slots[0]]
+    _sync([home])
+    barrier()
+    reset_counts()
+    t0 = time.perf_counter()
+    got = sharded_stack_pipeline(batch, g, offs, mesh, **kw)
+    _sync([home])
+    out = {"wall_ms": (time.perf_counter() - t0) * 1e3, "launches": read_counts()}
+    _add_counts(launched, out["launches"])
+    if rank == 0:
+        out["equal"] = bool(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]))
+    elif got is not None:
+        raise AssertionError(f"rank {rank} got a result from the stack")
+    return out
+
+
+def _mp_fleet(rank: int, mesh, inputs: dict, barrier) -> dict:
+    """(c) on one rank: the fleet across the ranks against one slot."""
+    from das_diff_veh_tpu_torch.inversion import invert_fleet
+
+    spec, sets = inputs["fleet"]
+    out = {}
+    if rank == 0:
+        t0 = time.perf_counter()
+        one = invert_fleet(spec, sets, device="cuda", **MP_FLEET)
+        out["one_slot_wall_s"] = time.perf_counter() - t0
+    barrier()
+    t0 = time.perf_counter()
+    got = invert_fleet(spec, sets, mesh=mesh, **MP_FLEET)
+    out["multiprocess_wall_s"] = time.perf_counter() - t0
+    if rank == 0:
+        gaps = {f: float(np.nanmax(np.abs(np.asarray(a, float) - np.asarray(b, float))))
+                for f, a, b in zip(got._fields, got, one)}
+        out["gaps"] = gaps
+        out["equal"] = all(g == 0.0 for f, g in gaps.items()
+                           if f not in ("models_x", "misfits"))
+        out["members_max_gap"] = max(gaps["models_x"], gaps["misfits"])
+    elif got is not None:
+        raise AssertionError(f"rank {rank} got a result from the fleet")
+    return out
+
+
+def _mp_ladder(rank: int, mesh, refs: dict, launched: dict) -> dict:
+    """(d) on one rank: one ``parallel.ring`` fault planted on rank 1 only
+    through ``resilient_all_pairs_peak``; every rank must demote."""
+    from das_diff_veh_tpu_torch.resilience import degrade, faults
+    from das_diff_veh_tpu_torch.resilience.faults import FaultPlan, FaultSpec
+    from das_diff_veh_tpu_torch.workloads import make_ambient_record
+
+    home = mesh.devices[mesh.local_slots[0]]
+    rec = make_ambient_record(ALLPAIRS["nch"], ALLPAIRS["nt"], seed=ALLPAIRS["seed"],
+                              device=home)
+    WATCH.phase = f"20 multiproc: all-pairs ladder, rank {rank}"
+    degrade.set_ladder(degrade.DegradationLadder(flight=WATCH))
+    plan = FaultPlan(specs=(FaultSpec("parallel.ring", "error"),) if rank == 1 else ())
+    reset_counts()
+    with faults.injected(plan) as inj:
+        fell = degrade.resilient_all_pairs_peak(rec, ALLPAIRS["wlen"], mesh)
+        fired = inj.n_injected
+    _sync([home])
+    _add_counts(launched, read_counts())
+    out = {"fired": fired, "demoted": degrade.demoted(degrade.PARALLEL_RING),
+           "demotions": WATCH.seen}
+    if rank == 0:
+        out["equal"] = bool(torch.equal(fell, refs["f32"]))
+    degrade.reset()
+    return out
+
+
+def _mp_rank(rank: int, world: int, backend: str, full: bool, out_dir: str) -> None:
+    """One rank of phase 20, in a spawned process (its stdout is the
+    parent's): join the group, run the parts and leave its report in
+    ``out_dir``."""
+    import os
+
+    os.environ["LOCAL_RANK"] = str(rank)
+    torch.set_num_threads(1)       # the ranks share the host's cores
+    sys.path.insert(0, str(REPO))
+    from das_diff_veh_tpu_torch import kernels
+    from das_diff_veh_tpu_torch.parallel import Mesh, initialize_cluster, make_mesh
+
+    kernels.build_all()            # the parent built them: this only loads
+    build_s = sum(kernels.build_seconds.values())
+    log(f"phase 20 {backend} rank {rank}/{world}: build_seconds {build_s}")
+    initialize_cluster(f"file://{out_dir}/store", world, rank, backend=backend,
+                       timeout_s=MP_GROUP_TIMEOUT_S)
+    import torch.distributed as dist
+
+    try:
+        inputs = torch.load(Path(out_dir).parent / "inputs.pt", weights_only=False)
+        if backend == "gloo":
+            mesh = make_mesh(world, device="cuda:0")
+            local = Mesh((mesh.devices[0],) * world)        # phase 16's 4 slots of the card
+            host = None
+        else:
+            mesh = make_mesh(world)                           # one card a rank
+            local = Mesh(tuple(torch.device("cuda", i) for i in range(world)))
+            # the ranks wait for rank 0's references on the host: an NCCL
+            # barrier would spin a kernel on the cards rank 0 is timing
+            host = dist.new_group(backend="gloo")
+
+        def barrier():
+            dist.barrier(group=host)
+
+        launched = dict(NO_LAUNCHES, cross_spectra_bf16=0)
+        out = {"rank": rank, "build_seconds": build_s, "slot_device": str(
+            mesh.devices[mesh.local_slots[0]]), "ranks": mesh.ranks}
+        out["ring"], refs = _mp_ring(rank, mesh, local, launched, barrier)
+        out["stack"] = _mp_stack(rank, mesh, local, inputs, launched, barrier)
+        if full:
+            out["fleet"] = _mp_fleet(rank, mesh, inputs, barrier)
+            out["ladder"] = _mp_ladder(rank, mesh, refs, launched)
+        out["launched"] = launched
+        out["loaded"] = sorted(m for m in ("jax", "das_diff_veh_tpu") if m in sys.modules)
+        torch.save(out, Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _mp_spawn(world: int, backend: str, full: bool, root: Path) -> tuple:
+    """Spawn ``world`` ranks of phase 20 and wait for them by the deadline
+    (stragglers are killed); every rank's report, and the spawn's wall."""
+    import multiprocessing
+
+    out_dir = root / backend
+    out_dir.mkdir()
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_mp_rank, args=(r, world, backend, full, str(out_dir)))
+             for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + MP_JOIN_DEADLINE_S
+    try:
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+    finally:
+        late = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(30)
+    wall = time.perf_counter() - t0
+    codes = [p.exitcode for p in procs]
+    if late or codes != [0] * world:
+        raise AssertionError(f"phase 20 {backend}: ranks {late} missed the "
+                             f"{MP_JOIN_DEADLINE_S} s deadline; exit codes {codes}")
+    return [torch.load(out_dir / f"rank{r}.pt", weights_only=False) for r in range(world)], wall
+
+
+def _mp_inputs(section, root: Path) -> None:
+    """What every rank passes alike, written once: the chunk scene's window
+    batch with its gather geometry (b), and phase 17's fleet curve sets (c)."""
+    from das_diff_veh_tpu_torch.config import BootstrapConfig, DispersionConfig, PipelineConfig
+    from das_diff_veh_tpu_torch.inversion import Curve, speed_model_spec
+    from das_diff_veh_tpu_torch.pipeline.timelapse import process_chunk
+
+    cfg = PipelineConfig()
+    batch = process_chunk(section.to("cuda", torch.float32), cfg, device="cuda").batch
+    batch = dataclasses.replace(batch, **{f.name: getattr(batch, f.name).cpu()
+                                          for f in dataclasses.fields(batch)})
+    g, offs, _ = _gather_geometry(section, cfg)
+    kw = dict(gather_cfg=cfg.gather, disp_cfg=cfg.dispersion,
+              disp_start_x=cfg.imaging.disp_start_x, disp_end_x=cfg.imaging.disp_end_x,
+              dx=cfg.interrogator.dx)
+    parity = json.loads((REPO / "INVERSION_PARITY.json").read_text())["700_mid_speed"]
+    spec = speed_model_spec()
+    model = spec.to_model(torch.tensor(parity["x_best"], dtype=torch.float64, device="cuda"))
+    curves = _science_curves(model, DispersionConfig().freqs(), BootstrapConfig())
+    rng = np.random.default_rng(11)            # phase 17's noise draws
+    sets = [[Curve(c.period, c.velocity + rng.normal(0.0, c.uncertainty), c.mode, c.weight,
+                   c.uncertainty) for c in curves] for _ in range(SCIENCE_TARGETS)]
+    torch.save({"stack": (batch, g, offs, kw), "fleet": (spec, sets)}, root / "inputs.pt")
+
+
+def _mp_check(label: str, reports: list, slots: int, full: bool) -> dict:
+    """Hold one spawn's reports to phase 20's contract; its summary."""
+    nch = ALLPAIRS["nch"]
+    r0 = reports[0]
+    summary = {"ranks": len(reports), "slot_devices": [r["slot_device"] for r in reports],
+               "build_seconds": [r["build_seconds"] for r in reports],
+               "loaded": [r["loaded"] for r in reports],
+               "ring_equal": r0["ring"]["equal"], "stack_equal": r0["stack"]["equal"],
+               "ring_launches_per_rank": [r["ring"]["launches"] for r in reports],
+               "stack_launches_per_rank": [r["stack"]["launches"]["traj_gather"]
+                                           for r in reports],
+               "sent_bytes_per_call": {name: sum(r["ring"]["sent_bytes"][name] for r in reports)
+                                       for name, _ in MP_RING_CONFIGS},
+               "wall_ms": r0["ring"]["wall_ms"],
+               "wall_ms_median": {k: float(np.median(v))
+                                  for k, v in r0["ring"]["wall_ms"].items()},
+               "device_memory_peak_bytes": [r["ring"]["device_memory_peak_bytes"]
+                                            for r in reports],
+               "stack_wall_ms": r0["stack"]["wall_ms"],
+               "launched": {k: sum(r["launched"][k] for r in reports)
+                            for k in reports[0]["launched"]}}
+    want = {name: _ring_launches(nch, slots, kw.get("mode", "ring")) for name, kw in
+            MP_RING_CONFIGS}
+    bad = []
+    if any(b != 0 for b in summary["build_seconds"]):
+        bad.append("a rank built a kernel")
+    if any(summary["loaded"]):
+        bad.append("a rank loaded JAX")
+    if not all(summary["ring_equal"].values()) or not summary["stack_equal"]:
+        bad.append("a result differs")
+    if any(r["ring"]["launches"] != want for r in reports):
+        bad.append(f"ring launches, reckoned {want}")
+    if any(n != 2 for n in summary["stack_launches_per_rank"]):
+        bad.append("B1 is not 2 a rank in the stack")
+    if full:
+        fl = r0["fleet"]
+        summary["fleet"] = {"one_slot_wall_s": fl["one_slot_wall_s"],
+                            "multiprocess_wall_s": [r["fleet"]["multiprocess_wall_s"]
+                                                    for r in reports],
+                            "equal": fl["equal"], "members_max_gap": fl["members_max_gap"]}
+        if not (fl["equal"] and fl["members_max_gap"] <= FLEET_MEMBER_GAP):
+            bad.append(f"the fleet differs from one slot: {fl['gaps']}")
+        lad = [r["ladder"] for r in reports]
+        summary["ladder"] = {"fired": [x["fired"] for x in lad],
+                             "demoted": [x["demoted"] for x in lad],
+                             "equal": lad[0]["equal"],
+                             "errors": [[d["error"] for d in x["demotions"]] for x in lad]}
+        if not (summary["ladder"]["fired"] == [int(r == 1) for r in range(len(lad))]
+                and all(summary["ladder"]["demoted"]) and lad[0]["equal"]
+                and all(len(x["demotions"]) == 1 for x in lad)):
+            bad.append(f"the planted fault did not demote every rank: {summary['ladder']}")
+    log(f"phase 20 {label}: {summary}")
+    if bad:
+        raise AssertionError(f"phase 20 {label}: {bad}")
+    return summary
+
+
+def phase_multiproc(section, nvidia_smi: str) -> dict:
+    """Phase 20: the mesh across processes, gloo ranks sharing the card and,
+    with 2 or more cards, NCCL ranks one a card."""
+    t0 = time.perf_counter()
+    (REPO / "build").mkdir(exist_ok=True)
+    out = {"device": nvidia_smi, "reduced": MP_REDUCED}
+    cards = torch.cuda.device_count()
+    with tempfile.TemporaryDirectory(dir=REPO / "build", prefix="multiproc_") as tmp:
+        root = Path(tmp)
+        _mp_inputs(section, root)
+        torch.cuda.empty_cache()
+        WATCH.phase = "20 multiproc: gloo"
+        reports, wall = _mp_spawn(MP_RANKS, "gloo", True, root)
+        out["gloo"] = _mp_check(f"gloo, {MP_RANKS} ranks on one card", reports, MP_RANKS, True)
+        out["gloo"]["spawn_wall_s"] = wall
+        for r in reports:              # every rank's demotion was planted in (d)
+            for d in r["ladder"]["demotions"]:
+                WATCH.seen.append(dict(d, planted=True))
+        if cards >= 2:
+            WATCH.phase = "20 multiproc: nccl"
+            reports, wall = _mp_spawn(cards, "nccl", False, root)
+            out["nccl"] = _mp_check(f"nccl, {cards} ranks one a card", reports, cards, False)
+            out["nccl"]["spawn_wall_s"] = wall
+        else:
+            out["nccl"] = ("not run: this machine has one card, and NCCL refuses two ranks "
+                           "on one card (each NCCL rank needs a card of its own)")
+            log(f"phase 20: the NCCL run was {out['nccl']}")
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"multiproc phase ({nvidia_smi}) took {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement to this JSON file")
@@ -3784,7 +4199,8 @@ def main() -> int:
         from das_diff_veh_tpu_torch.resilience import degrade
 
         # the process ladder reports every demotion to WATCH (the workflow's
-        # hook feeds it on the card); phase 16 plants the only ones allowed
+        # hook feeds it on the card); phases 16 and 20 plant the only ones
+        # allowed
         degrade.set_ladder(degrade.DegradationLadder(flight=WATCH))
         smi = results["device"]["nvidia_smi"]
         WATCH.phase = "2 build"
@@ -3846,22 +4262,37 @@ def main() -> int:
             for img in serial_images.values():
                 serial_ref = img if serial_ref is None else serial_ref + img
             results["ops"] = phase_ops(section, root, serial_ref, smi)
-        # the launches phase 19 adds, beside each kernel's earlier ones (the
-        # counters do not tell the tiers apart; phase 19 runs float32 only)
+        torch.cuda.empty_cache()
+        results["multiproc"] = phase_multiproc(section, smi)
+        # the launches phases 19 and 20 add, beside each kernel's earlier ones
+        # (phase 19's counters do not tell the tiers apart; phase 20's are
+        # summed over its ranks and its runs across processes, by tier)
+        mp = results["multiproc"]
         for k in results["times"]["kernels"]:
             key = {"traj_gather_pack": "traj_gather", "traj_dot_correlate": "traj_dot",
                    "cross_spectra": "cross_spectra", "lag_absmax": "lag_absmax"}.get(k["name"])
             k["launches_phase19"] = results["ops"]["launches"][key] if key else 0
-        stray = [d for d in WATCH.seen if not d["planted"]]
-        log(f"demotions over the run: {len(WATCH.seen)}, planted by phase 16: "
-            f"{sum(d['planted'] for d in WATCH.seen)}, not planted: {stray}")
-        if stray:
-            raise AssertionError(f"demotions that no phase planted: {stray}")
-        results["demotions"] = WATCH.seen
+            key = "cross_spectra_bf16" if k["name"] == "cross_spectra_bf16" else key
+            k["launches_phase20"] = (sum(mp[b]["launched"][key] for b in ("gloo", "nccl")
+                                         if isinstance(mp[b], dict)) if key else 0)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr, flush=True)
         return 1
+    return _finish(args, results, t_script)
+
+
+def _finish(args, results: dict, t_script: float) -> int:
+    """Check the run's demotions, write ``--out`` and print the JSON lines,
+    the card's name and power limit and the last line."""
+    stray = [d for d in WATCH.seen if not d["planted"]]
+    log(f"demotions over the run: {len(WATCH.seen)}, planted by phases 16 and 20: "
+        f"{sum(d['planted'] for d in WATCH.seen)}, not planted: {stray}")
+    if stray:
+        print(f"chip_smoke: FAILED: demotions that no phase planted: {stray}", file=sys.stderr,
+              flush=True)
+        return 1
+    results["demotions"] = WATCH.seen
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(results, indent=1))
@@ -3916,6 +4347,7 @@ def main() -> int:
     log(json.dumps({"science": _science_line(results["science"])}))
     log(json.dumps({"serve": _serve_line(results["serve"])}))
     log(json.dumps({"ops": _ops_line(results["ops"])}))
+    log(json.dumps({"multiproc": results["multiproc"]}))
     log(f"script wall {time.perf_counter() - t_script:.1f} s")
     log(dev["nvidia_smi"])
     log(json.dumps({"kernels": results["times"]["kernels"]}))

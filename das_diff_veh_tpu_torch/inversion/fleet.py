@@ -31,9 +31,9 @@ import torch
 
 from das_diff_veh_tpu_torch.inversion.curves import Curve
 from das_diff_veh_tpu_torch.inversion.forward import _pairwise_sum, phase_velocity
-from das_diff_veh_tpu_torch.inversion.invert import (INVALID_RESIDUAL, ModelSpec, _pool_starts,
-                                                     _refine, _run_generators, _slots_of,
-                                                     _swarm, _warm_starts)
+from das_diff_veh_tpu_torch.inversion.invert import (INVALID_RESIDUAL, ModelSpec, _on_root,
+                                                     _pool_starts, _refine, _run_generators,
+                                                     _slots_of, _swarm, _warm_starts)
 
 
 class CurveBatch(NamedTuple):
@@ -222,7 +222,7 @@ def invert_fleet(spec: ModelSpec, curve_sets: Optional[Sequence[Sequence[Curve]]
                  seed: int = 0, chunk: int = 50, eval_chunk: int = 0, refine_chunk: int = 0,
                  target_chunk: int = 0, credible_factor: float = 2.0,
                  credible_q: tuple[float, float] = (0.05, 0.95), x0=None, mesh=None,
-                 mesh_axis: str = "win", device=None) -> FleetResult:
+                 mesh_axis: str = "win", device=None) -> FleetResult | None:
     """Invert T curve sets in one batched search over (targets, runs, pop),
     on ``device`` (``None`` = the card) or the slots of ``mesh``.
 
@@ -230,14 +230,18 @@ def invert_fleet(spec: ModelSpec, curve_sets: Optional[Sequence[Sequence[Curve]]
     prebuilt :class:`CurveBatch`), ``target_chunk`` (targets per pass, each
     pass padded to that size by repeating its first target), the credible
     cut and quantiles.  ``mesh`` deals each pass's targets over its slots in
-    contiguous blocks (the pass rounded up to a multiple of its size)."""
+    contiguous blocks (the pass rounded up to a multiple of its size); on a
+    mesh across processes each rank runs its own slots' targets, their
+    members and histories go to rank 0 in slot order, and rank 0 returns
+    the result, the other ranks ``None``."""
     del chunk, mesh_axis
     dtype = dtype or torch.float64
-    devs = _slots_of(mesh, device)
+    devs, local = _slots_of(mesh, device)
+    home = devs[local[0]]
     if batch is None:
         if curve_sets is None:
             raise ValueError("pass curve_sets or a packed batch")
-        batch = pack_curve_sets(curve_sets, dtype=dtype, device=devs[0])
+        batch = pack_curve_sets(curve_sets, dtype=dtype, device=home)
     misfit_fn = make_packed_misfit_fn(spec, n_grid=n_grid, n_subdiv=n_subdiv, invalid=invalid)
     T = batch.n_targets
     tc = target_chunk if (target_chunk and target_chunk < T) else T
@@ -249,25 +253,37 @@ def invert_fleet(spec: ModelSpec, curve_sets: Optional[Sequence[Sequence[Curve]]
         sel = np.arange(start, start + tc)
         sel = np.where(sel < T, sel, start)
         keep = min(tc, T - start)
+        parts = np.array_split(sel, len(devs))
         slots = []
-        for d, part in zip(devs, np.array_split(sel, len(devs))):
+        for j in local:
+            d, part = devs[j], parts[j]
             idx = torch.as_tensor(part, device=batch.period.device)
             seeds = seed + part[:, None] * n_runs + np.arange(n_runs)[None, :]
             slots.append({"misfit": misfit_fn, "device": d, "lead": (len(part), n_runs),
                           "data": batch.map(lambda a: a[idx].to(d)),
                           "gens": _run_generators(seeds, d)})
-        out = _swarm(slots, popsize, spec.n_params, maxiter, dtype, eval_chunk, x0)
-        for s, (state, hist) in zip(slots, out):
-            starts = _pool_starts(state, k)                   # (tc_s, runs*(k+1), n_params)
-            ref_x, ref_f = _refine(misfit_fn, starts, n_refine_steps, data=s["data"],
-                                   refine_chunk=refine_chunk)
-            n = starts.shape[0]
-            s["all_x"] = torch.cat([state[2].reshape(n, -1, spec.n_params), ref_x], dim=1)
-            s["all_f"] = torch.cat([state[3].reshape(n, -1), ref_f], dim=1)
-            s["hist"] = torch.amin(hist, dim=1)
-        ax, af, ah = (np.concatenate([s[key].detach().cpu().numpy() for s in slots], axis=0)
-                      for key in ("all_x", "all_f", "hist"))
+
+        def run_slots(slots=slots):
+            out = _swarm(slots, popsize, spec.n_params, maxiter, dtype, eval_chunk, x0)
+            done = []
+            for s, (state, hist) in zip(slots, out):
+                starts = _pool_starts(state, k)               # (tc_s, runs*(k+1), n_params)
+                ref_x, ref_f = _refine(misfit_fn, starts, n_refine_steps, data=s["data"],
+                                       refine_chunk=refine_chunk)
+                n = starts.shape[0]
+                done.append(tuple(a.detach().cpu().numpy() for a in (
+                    torch.cat([state[2].reshape(n, -1, spec.n_params), ref_x], dim=1),
+                    torch.cat([state[3].reshape(n, -1), ref_f], dim=1),
+                    torch.amin(hist, dim=1))))
+            return done
+
+        done = _on_root(mesh, home, "invert_fleet", run_slots, lambda e: e)
+        if done is None:
+            continue
+        ax, af, ah = (np.concatenate([d[i] for d in done], axis=0) for i in range(3))
         chunks.append((ax[:keep], af[:keep], ah[:keep]))
+    if not chunks:                  # a rank other than 0 of a mesh across processes
+        return None
     models_x = np.concatenate([c[0] for c in chunks], axis=0)
     misfits = np.concatenate([c[1] for c in chunks], axis=0)
     history = np.concatenate([c[2] for c in chunks], axis=0)

@@ -22,6 +22,9 @@ Every run's swarm advances in one batched evaluation; the best basins of all
 runs are pooled into one refinement batch.  With a ``mesh``
 (``parallel.Mesh``) the run axis is dealt over its slots in contiguous
 blocks, each slot advances its own runs, and the runs are pooled at the end.
+On a mesh across processes each rank advances its own slots' runs, and
+their swarm states and histories go to rank 0 in slot order, which refines
+and returns the result; the other ranks return ``None``.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from das_diff_veh_tpu_torch.device import resolve_device
 from das_diff_veh_tpu_torch.inversion.curves import Curve
 from das_diff_veh_tpu_torch.inversion.forward import (LayeredModel, density_gardner_linear,
                                                       vp_from_poisson)
+from das_diff_veh_tpu_torch.parallel import distributed
 
 INVALID_RESIDUAL = 5.0  # penalty residual of a below-cutoff overtone sample
 PSO_W, PSO_C1, PSO_C2 = 0.7298, 1.49618, 1.49618
@@ -315,10 +319,21 @@ def _warm_starts(x0, dtype):
     return torch.as_tensor(np.array(x0, dtype=np.float64)).to(dtype)
 
 
-def _slots_of(mesh, device) -> list:
+def _slots_of(mesh, device) -> tuple:
+    """``(every slot's device, this process's slots)``."""
     if mesh is None:
-        return [resolve_device(device)]
-    return list(mesh.devices)
+        return [resolve_device(device)], (0,)
+    return list(mesh.devices), mesh.local_slots
+
+
+def _on_root(mesh, home, what: str, fn, pack) -> list | None:
+    """``fn()`` (a list, one entry per local slot); on a mesh across
+    processes every rank's entries go to rank 0 through ``pack`` (to the
+    host), in slot order, and the other ranks get None."""
+    if mesh is None or not mesh.multiprocess:
+        return fn()
+    got = distributed.gather_objects([pack(e) for e in distributed.agreed(fn, what, home)])
+    return None if got is None else [e for per_rank in got for e in per_rank]
 
 
 def invert(spec: ModelSpec, curves: Sequence[Curve], *, popsize: int = 50, maxiter: int = 200,
@@ -339,7 +354,8 @@ def invert_multirun(spec: ModelSpec, curves: Sequence[Curve], *, n_runs: int = 3
                     n_refine_steps: int = 80, n_grid: int = 400, n_subdiv: int = 1,
                     dtype=None, invalid: str = "penalty", seed: int = 0, chunk: int = 50,
                     eval_chunk: int = 0, refine_chunk: int = 0, misfit_fn=None, x0=None,
-                    mesh=None, mesh_axis: str = "win", device=None) -> InversionResult:
+                    mesh=None, mesh_axis: str = "win",
+                    device=None) -> InversionResult | None:
     """Best of ``n_runs`` swarms, every run advanced in one batched
     evaluation, on ``device`` (``None`` = the card; raises without one).
 
@@ -352,20 +368,26 @@ def invert_multirun(spec: ModelSpec, curves: Sequence[Curve], *, n_runs: int = 3
     ``parallel.Mesh`` whose slots take contiguous blocks of the runs
     (``mesh_axis`` is its only axis); run ``r`` draws from the generator
     seeded ``seed + r`` wherever it runs, so the result does not depend on
-    the mesh."""
+    the mesh.  On a mesh across processes every rank passes the same
+    arguments; rank 0 returns the result, the other ranks ``None``."""
     del chunk, mesh_axis
     dtype = dtype or torch.float64
     if misfit_fn is None:
         misfit_fn = make_misfit_fn(spec, curves, n_grid=n_grid, n_subdiv=n_subdiv,
                                    dtype=dtype, invalid=invalid)
     fn = _as_data_misfit(misfit_fn)
-    devs = _slots_of(mesh, device)
-    home = devs[0]
+    devs, local = _slots_of(mesh, device)
+    home = devs[local[0]]
     blocks = np.array_split(np.arange(n_runs), len(devs))
-    slots = [{"misfit": fn, "data": None, "device": d, "lead": (len(b),),
-              "gens": _run_generators(seed + b, d)} for d, b in zip(devs, blocks) if len(b)]
+    slots = [{"misfit": fn, "data": None, "device": devs[j], "lead": (len(blocks[j]),),
+              "gens": _run_generators(seed + blocks[j], devs[j])}
+             for j in local if len(blocks[j])]
     x0 = _warm_starts(x0, dtype)
-    out = _swarm(slots, popsize, spec.n_params, maxiter, dtype, eval_chunk, x0)
+    out = _on_root(mesh, home, "invert_multirun",
+                   lambda: _swarm(slots, popsize, spec.n_params, maxiter, dtype, eval_chunk, x0),
+                   lambda e: (tuple(a.cpu() for a in e[0]), e[1].cpu()))
+    if out is None:
+        return None
     states = [tuple(a.to(home) for a in st) for st, _ in out]
     state = tuple(torch.cat([st[i] for st in states], dim=0) for i in range(6))
     hist = torch.cat([h.to(home) for _, h in out], dim=0)

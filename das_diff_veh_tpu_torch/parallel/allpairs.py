@@ -13,21 +13,31 @@ no slot ever holds the full receiver set:
   ``((j + k) % D) * shard_rows``, since that shard started on slot
   ``(j + k) % D``;
 - between steps the shards rotate one slot (``distributed.ring_perm``):
-  slot j sends its shard to slot ``(j - 1) % D`` with ``Tensor.to(device,
-  non_blocking=True)`` on a copy stream of each card.  ``double_buffer``
-  issues step k+1's copies before step k's correlations, and a slot's
-  compute stream waits on the copy's event before it uses the shard;
-  without it the copies are issued after the step's correlations;
-- slots on one device (``make_mesh(n, device="cuda")`` on one card, or the
-  CPU slots) hand shards on by reference: ``.to()`` of a tensor that is
-  already there returns it.
+  slot j sends its shard to slot ``(j - 1) % D``.  Between cards of one
+  process that is ``Tensor.to(device, non_blocking=True)`` on a copy stream
+  of each card, and a slot's compute stream waits on the copy's event
+  before it uses the shard; slots on one device (several slots of one
+  card, or the CPU slots) hand shards on by reference; between ranks it is
+  one ``distributed.exchange`` a rotation (NCCL on the cards, or gloo
+  through pinned host buffers).  ``double_buffer`` issues step k+1's hops
+  before step k's correlations; without it they are issued after them.
 
 ``"replicated"`` gives every slot the whole receiver set and runs no
-rotation.  On the kernel path every mode and buffering choice equals the
-unsharded ``xcorr_all_pairs_peak`` bit for bit, because B3 sums one pair's
-windows in a fixed order whatever the launch's shape.  A kernel that fails
-raises through here: only ``resilience.degrade.resilient_all_pairs_peak``
-falls back.
+rotation (across ranks, an all-gather of the slots' spectra).  On the
+kernel path every mode and buffering choice equals the unsharded
+``xcorr_all_pairs_peak`` bit for bit, because B3 sums one pair's windows in
+a fixed order whatever the launch's shape.
+
+Across processes (a mesh of ``make_mesh`` under a group) every rank passes
+the same arguments and the same ``data``, windows only its own slots' rows,
+and issues the same communication calls in the same order; the output row
+blocks are gathered to rank 0 in slot order, which returns the matrix on
+its first slot, and the other ranks return ``None``.  A failure on one rank
+(the ``parallel.ring`` fault site fires before any communication) is
+agreed on before the rotation and again before the gather, so every rank
+raises together (``distributed.PeerFailure`` on the others) and none is
+left waiting in a receive.  A kernel that fails raises through here: only
+``resilience.degrade.resilient_all_pairs_peak`` falls back.
 """
 
 from __future__ import annotations
@@ -41,7 +51,7 @@ from das_diff_veh_tpu_torch.ops.all_pairs import (_decide_kernel, _resolve_lagma
                                                   _resolve_win_block, _window_spectra,
                                                   peak_from_spectra)
 from das_diff_veh_tpu_torch.ops.precision import check_precision
-from das_diff_veh_tpu_torch.parallel.distributed import ring_perm
+from das_diff_veh_tpu_torch.parallel import distributed as D
 from das_diff_veh_tpu_torch.parallel.mesh import Mesh
 from das_diff_veh_tpu_torch.resilience import faults
 
@@ -49,29 +59,40 @@ from das_diff_veh_tpu_torch.resilience import faults
 def _observe_ring_build(mesh: Mesh, ring: RingConfig,
                         registry: MetricsRegistry | None) -> None:
     """Count this call by mode (``das_ring_builds_total{mode}``), set the
-    mesh size (``das_ring_devices``) and wire lazy memory gauges for the
-    mesh's cards."""
+    mesh size (``das_ring_devices``) and wire lazy memory gauges for this
+    process's cards of the mesh."""
     reg = registry if registry is not None else default_registry()
     reg.counter("das_ring_builds_total", "all-pairs ring calls, by decomposition",
                 labels=("mode",)).labels(mode=ring.mode).inc()
     reg.gauge("das_ring_devices", "mesh size of the last ring call").set(mesh.size)
-    register_memory_gauges(reg, sorted({d.index for d in mesh.devices if d.type == "cuda"}))
+    register_memory_gauges(reg, sorted({mesh.devices[j].index for j in mesh.local_slots
+                                        if mesh.devices[j].type == "cuda"}))
 
 
 class _Rotation:
-    """The ring's shard copies between cards, each on a copy stream of its
-    card; shards whose source and destination device are one are handed on
-    by reference."""
+    """The ring's shard hops of this process's slots: between its cards on a
+    copy stream of each card, by reference on one device, and across ranks
+    as one ``distributed.exchange`` a rotation (the rank's first slot sends
+    to the previous rank, its last slot receives from the next)."""
 
     def __init__(self, mesh: Mesh):
         self.mesh = mesh
-        self._copy = {d: torch.cuda.Stream(d) for d in set(mesh.devices) if d.type == "cuda"}
+        self.local = set(mesh.local_slots)
+        self._copy = {mesh.devices[j]: torch.cuda.Stream(mesh.devices[j])
+                      for j in self.local if mesh.devices[j].type == "cuda"}
 
-    def issue(self, held: list) -> list:
-        """Start one rotation: returns ``(shard, ready event or None)`` per
-        slot, slot i receiving slot ``(i + 1) % D``'s shard."""
-        nxt = [None] * self.mesh.size
-        for src, dst in ring_perm(self.mesh.size):
+    def issue(self, held: dict) -> dict:
+        """Start one rotation of ``held`` (local slot -> shard): returns each
+        local slot's entry, slot i receiving slot ``(i + 1) % D``'s shard."""
+        nxt, send, recv = {}, None, None
+        for src, dst in D.ring_perm(self.mesh.size):
+            if src in held and dst not in self.local:
+                send = (held[src], self.mesh.ranks[dst])
+                continue
+            if src not in held:
+                if dst in self.local:
+                    recv = (dst, self.mesh.ranks[src])
+                continue
             shard, dev = held[src], self.mesh.devices[dst]
             if shard.device == dev:
                 nxt[dst] = (shard, None)
@@ -84,12 +105,17 @@ class _Rotation:
                 done.record(d_copy)
             shard.record_stream(s_copy)        # read by the copy until it ends
             nxt[dst] = (moved, done)
+        if recv is not None:            # across ranks: one hop out, one in
+            nxt[recv[0]] = D.exchange(send[0], send[1], send[0], recv[1],
+                                      self.mesh.devices[recv[0]])
         return nxt
 
     @staticmethod
     def take(entry) -> torch.Tensor:
-        """The shard of a slot, once its copy has landed (the slot's compute
-        stream waits on the copy's event)."""
+        """The shard of a slot, once its hop has landed (the slot's compute
+        stream waits on the copy's event, or on the exchange)."""
+        if isinstance(entry, D.Transfer):
+            return entry.wait()
         shard, done = entry
         if done is not None:
             stream = torch.cuda.current_stream(shard.device)
@@ -102,9 +128,10 @@ def sharded_all_pairs_peak(data, wlen: int, mesh: Mesh, *, axis: str = "win",
                            overlap_ratio: float = 0.5, src_chunk: int = 64,
                            use_kernel: bool | None = None, win_block: int | None = None,
                            ring: RingConfig | None = None,
-                           registry: MetricsRegistry | None = None) -> torch.Tensor:
+                           registry: MetricsRegistry | None = None) -> torch.Tensor | None:
     """Peak |xcorr| of every channel pair, (nch, nch) float32 on the first
-    slot's device, computed as a ring over ``mesh`` (module docstring).
+    slot's device, computed as a ring over ``mesh`` (module docstring); on a
+    mesh across processes rank 0 returns it and the other ranks ``None``.
 
     ``data``: the (nch, nt) record.  ``ring`` picks the decomposition and
     its knobs (:class:`RingConfig`); a per-call ``win_block`` wins over
@@ -117,50 +144,77 @@ def sharded_all_pairs_peak(data, wlen: int, mesh: Mesh, *, axis: str = "win",
         raise ValueError(f"RingConfig.mode must be 'ring' or 'replicated', got {ring.mode!r}")
     if axis != mesh.axis:
         raise ValueError(f"the mesh's axis is {mesh.axis!r}, not {axis!r}")
-    # chaos site: a failed ring, which resilient_all_pairs_peak turns into a
-    # fallback to the replicated layout
-    if ring.mode == "ring":
-        faults.fire("parallel.ring")
-    _observe_ring_build(mesh, ring, registry)
-    wb = win_block if win_block is not None else ring.win_block
-    _resolve_win_block(1, wb)
-    _resolve_lagmax_block(1, False, ring.lagmax_block)
-    check_precision(ring.precision)
-
+    local = mesh.local_slots
+    home = mesh.devices[local[0]]
     data = torch.as_tensor(data)
     nch, n_dev = data.shape[0], mesh.size
     pad = (-nch) % n_dev
     shard_rows = (nch + pad) // n_dev
-    use_k = _decide_kernel(shard_rows, use_kernel, mesh.devices[0])
-    dpad = torch.nn.functional.pad(data, (0, 0, 0, pad))
-    # each slot's spectra from its own rows on its own device: the full set
-    # never lands on one slot
-    wf = [_window_spectra(dpad[j * shard_rows:(j + 1) * shard_rows].to(dev), wlen,
-                          overlap_ratio)
-          for j, dev in enumerate(mesh.devices)]
-    kw = dict(win_block=wb, lagmax_block=ring.lagmax_block, precision=ring.precision)
+    wb = win_block if win_block is not None else ring.win_block
 
-    def correlate(j: int, rcv: torch.Tensor) -> torch.Tensor:
-        return peak_from_spectra(wf[j], rcv, wlen, src_chunk, use_k,
-                                 device=mesh.devices[j], **kw)
+    def prologue():
+        # chaos site: a failed ring, which resilient_all_pairs_peak turns
+        # into a fallback to the replicated layout
+        if ring.mode == "ring":
+            faults.fire("parallel.ring")
+        _observe_ring_build(mesh, ring, registry)
+        _resolve_win_block(1, wb)
+        _resolve_lagmax_block(1, False, ring.lagmax_block)
+        check_precision(ring.precision)
+        dpad = torch.nn.functional.pad(data, (0, 0, 0, pad))
+        # each slot's spectra from its own rows on its own device: the full
+        # set never lands on one slot
+        return {j: _window_spectra(dpad[j * shard_rows:(j + 1) * shard_rows]
+                                   .to(mesh.devices[j]), wlen, overlap_ratio)
+                for j in local}
+
+    wf = (D.agreed(prologue, "sharded_all_pairs_peak", home) if mesh.multiprocess
+          else prologue())
+    use_k = _decide_kernel(shard_rows, use_kernel, mesh.devices[0])
+    kw = dict(win_block=wb, lagmax_block=ring.lagmax_block, precision=ring.precision)
+    failed = None
+
+    def correlate(j: int, rcv: torch.Tensor) -> torch.Tensor | None:
+        nonlocal failed
+        if failed is not None:
+            return None
+        try:
+            return peak_from_spectra(wf[j], rcv, wlen, src_chunk, use_k,
+                                     device=mesh.devices[j], **kw)
+        except Exception as e:  # noqa: BLE001 - raised on every rank before the gather
+            if not mesh.multiprocess:
+                raise
+            failed = e
+            return None
 
     if ring.mode == "replicated":
-        outs = [correlate(j, torch.cat([w.to(dev) for w in wf]))
-                for j, dev in enumerate(mesh.devices)]
+        if mesh.multiprocess:
+            full = torch.cat(D.all_gather(torch.cat([wf[j] for j in local]), home))
+        else:
+            full = None
+        outs = {j: correlate(j, full.to(mesh.devices[j]) if full is not None else
+                             torch.cat([w.to(mesh.devices[j]) for w in wf.values()]))
+                for j in local}
     else:
         rot = _Rotation(mesh)
-        outs = [torch.empty((shard_rows, n_dev * shard_rows), dtype=torch.float32, device=dev)
-                for dev in mesh.devices]
-        held = [(w, None) for w in wf]
+        outs = {j: torch.empty((shard_rows, n_dev * shard_rows), dtype=torch.float32,
+                               device=mesh.devices[j]) for j in local}
+        held = {j: (w, None) for j, w in wf.items()}
         for k in range(n_dev):
             last = k == n_dev - 1
-            shards = [rot.take(e) for e in held]
+            shards = {j: rot.take(e) for j, e in held.items()}
             if ring.double_buffer and not last:
                 held = rot.issue(shards)
-            for j in range(n_dev):
+            for j in local:
                 col = ((j + k) % n_dev) * shard_rows
-                outs[j][:, col:col + shard_rows] = correlate(j, shards[j])
+                block = correlate(j, shards[j])
+                if block is not None:
+                    outs[j][:, col:col + shard_rows] = block
             if not ring.double_buffer and not last:
                 held = rot.issue(shards)
-    home = mesh.devices[0]
-    return torch.cat([o.to(home) for o in outs])[:nch, :nch]
+    if not mesh.multiprocess:
+        return torch.cat([outs[j].to(home) for j in local])[:nch, :nch]
+    D.agree(failed, "sharded_all_pairs_peak", home)
+    blocks = D.gather_to_root([outs[j] for j in local], home)
+    return None if blocks is None else torch.cat(blocks)[:nch, :nch]
+

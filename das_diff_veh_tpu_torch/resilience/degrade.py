@@ -146,13 +146,25 @@ def resilient_all_pairs_peak(data, wlen: int, mesh, *, ring=None,
     without kernels (``use_kernel=False``) on a second one, recording each
     transition.  ``ValueError`` and ``TypeError`` (input validation, e.g. a
     negative ``win_block``) re-raise untouched: every rung would fail alike,
-    so they demote nothing.  Raises when the last rung fails too."""
+    so they demote nothing.  Raises when the last rung fails too.
+
+    On a mesh across processes every rank takes the same rung: a demotion
+    on any rank puts every rank on the replicated layout (an all-reduce
+    before the call), and the sharded entry raises the same kind on every
+    rank together: a refused input as a ``ValueError`` everywhere
+    (``distributed.PeerInvalid`` on the other ranks), which demotes no
+    ladder, any other failure as itself or ``distributed.PeerFailure``, which
+    demotes every ladder; so the retries stay in step."""
     from das_diff_veh_tpu_torch.config import RingConfig
+    from das_diff_veh_tpu_torch.parallel import distributed
     from das_diff_veh_tpu_torch.parallel.allpairs import sharded_all_pairs_peak
 
     lad = lad if lad is not None else ladder()
     cfg = ring if ring is not None else RingConfig()
-    if cfg.mode == "ring" and lad.demoted(PARALLEL_RING):
+    demoted = lad.demoted(PARALLEL_RING)
+    if mesh.multiprocess:
+        demoted = distributed.any_rank(demoted, mesh.devices[mesh.local_slots[0]])
+    if cfg.mode == "ring" and demoted:
         cfg = dataclasses.replace(cfg, mode="replicated")
     try:
         return sharded_all_pairs_peak(data, wlen, mesh, ring=cfg, **kw)

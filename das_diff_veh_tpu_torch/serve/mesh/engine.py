@@ -83,15 +83,27 @@ class MeshServingEngine(ServingEngine):
     ``mesh``: the ring placements' :class:`~das_diff_veh_tpu_torch.parallel.mesh.Mesh`;
     defaults to the factory's ``mesh``, else ``make_mesh(cfg.ring_devices,
     device=device)``, when the ring route is enabled.  Everything else (buckets, deadlines, health screen,
-    obs) rides the wrapped ``cfg.serve``.
+    obs) rides the wrapped ``cfg.serve``.  The engine serves from one
+    process: in a ``torch.distributed`` group of more than one rank it
+    raises ``NotImplementedError``.
     """
 
     def __init__(self, factory: ComputeFactory,
                  cfg: Optional[MeshServeConfig] = None, mesh=None,
                  tracer=None, registry: Optional[MetricsRegistry] = None,
                  flight: Optional[FlightRecorder] = None, device=None):
+        from das_diff_veh_tpu_torch.parallel import distributed
         from das_diff_veh_tpu_torch.parallel.mesh import make_mesh
 
+        if distributed.world_size() > 1:
+            # the JAX engine takes jax.devices() (das_diff_veh_tpu/serve/mesh/
+            # engine.py:91), and a process cannot place requests on another
+            # process's devices: that engine works in one process only
+            raise NotImplementedError(
+                f"MeshServingEngine in a process group of {distributed.world_size()} ranks: "
+                f"a process cannot place requests on another process's devices, so the "
+                f"engine serves from one process (ROADMAP: deliberate refusals); run one "
+                f"engine per process, or the sharded entries across the group")
         cfg = cfg if cfg is not None else MeshServeConfig()
         super().__init__(factory, cfg.serve, tracer=tracer,
                          registry=registry, flight=flight)

@@ -16,7 +16,6 @@ sums in another order on a shard than on the whole set, so it is held at
 JAX's einsum tolerance (rtol 2e-5)."""
 
 import dataclasses
-import socket
 
 import jax
 import jax.numpy as jnp
@@ -250,23 +249,93 @@ def test_initialize_cluster_partial_spec_noop(monkeypatch, caplog):
     assert not torch.distributed.is_initialized()
 
 
-def test_initialize_cluster_one_rank_gloo_and_multi_rank_refused(monkeypatch):
-    """A full spec joins a gloo process group (one rank here, on
-    localhost); a mesh then still builds.  A group of more than one rank is
-    refused by ``make_mesh``, naming the ROADMAP entry: the ring never runs
-    on the local slots only."""
+def test_initialize_cluster_one_rank_gloo_and_multi_rank_refused(monkeypatch, tmp_path):
+    """A full spec with ``backend="gloo"`` joins a process group (one rank
+    here); a mesh then still builds, all its slots local.  Under a group of
+    4 ranks (the group's size and this rank faked as 4 and 2) ``make_mesh``
+    builds the global layout: 8 slots dealt in contiguous blocks of 2 in
+    rank order, slots 4 and 5 local; 6 slots are refused (not divisible by
+    4), and so is ``MeshServingEngine``, which serves from one process,
+    naming ROADMAP.  The backend must be named, and NCCL without a card
+    raises."""
     import torch.distributed as dist
 
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
-    assert PP.initialize_cluster(f"localhost:{port}", 1, 0) is True
+    from das_diff_veh_tpu_torch.parallel import distributed as PD
+    from das_diff_veh_tpu_torch.serve.mesh.engine import MeshServingEngine
+
+    for var in _CLUSTER_VARS + (PD.BACKEND_ENV, "LOCAL_RANK"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(ValueError, match="backend"):
+        PP.initialize_cluster(f"file://{tmp_path / 'none'}", 1, 0)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="NCCL needs a card"):
+            PP.initialize_cluster(f"file://{tmp_path / 'nccl'}", 1, 0, backend="nccl")
+    assert not dist.is_initialized()
+    assert PP.initialize_cluster(f"file://{tmp_path / 'store'}", 1, 0, backend="gloo",
+                                 timeout_s=30) is True
     try:
-        assert dist.get_backend() == "gloo" and dist.get_world_size() == 1
-        assert PP.make_mesh(2, device="cpu").size == 2
-        monkeypatch.setattr(dist, "get_world_size", lambda *a, **k: 2)
+        assert dist.get_backend() == "gloo" and PP.world_size() == 1 and PP.rank() == 0
+        one = PP.make_mesh(2, device="cpu")
+        assert one.size == 2 and one.ranks == () and one.local_slots == (0, 1)
+
+        def every_rank_sends_this(out, obj, group=None):
+            out[:] = [obj] * len(out)
+
+        monkeypatch.setattr(dist, "get_world_size", lambda *a, **k: 4)
+        monkeypatch.setattr(dist, "get_rank", lambda *a, **k: 2)
+        monkeypatch.setattr(dist, "all_gather_object", every_rank_sends_this)
+        mesh = PP.make_mesh(8, device="cpu")
+        assert mesh.ranks == (0, 0, 1, 1, 2, 2, 3, 3) and mesh.multiprocess
+        assert mesh.devices == (torch.device("cpu"),) * 8
+        assert mesh.local_slots == (4, 5)
+        assert PP.make_mesh(device="cpu").ranks == (0, 1, 2, 3)
+        with pytest.raises(ValueError, match="evenly"):
+            PP.make_mesh(6, device="cpu")
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            PP.make_mesh(2, device="cpu")
+            MeshServingEngine(None, device="cpu")
+    finally:
+        monkeypatch.undo()
+        dist.destroy_process_group()
+
+
+def test_make_mesh_cards_of_a_rank_with_two_slots(monkeypatch, tmp_path):
+    """2 ranks x 2 slots, as rank 1 sees it (the group faked around a
+    one-rank gloo group, 4 cards faked): ``device=None`` gives rank 1 cards
+    2 and 3, counted from ``LOCAL_RANK`` 1, and cards 0 and 1 without
+    ``LOCAL_RANK`` (one process a host), never from the global rank.  Under
+    NCCL a rank drives one slot on the card ``initialize_cluster`` made
+    current: 2 slots a rank raise, and so does a slot on another card."""
+    import torch.distributed as dist
+
+    from das_diff_veh_tpu_torch.parallel import mesh as PM
+
+    for var in _CLUSTER_VARS + ("LOCAL_RANK",):
+        monkeypatch.delenv(var, raising=False)
+    assert PP.initialize_cluster(f"file://{tmp_path / 'store'}", 1, 0, backend="gloo",
+                                 timeout_s=30) is True
+    try:
+        def every_rank_sends_this(out, obj, group=None):
+            out[:] = [obj] * len(out)
+
+        monkeypatch.setattr(dist, "get_world_size", lambda *a, **k: 2)
+        monkeypatch.setattr(dist, "get_rank", lambda *a, **k: 1)
+        monkeypatch.setattr(dist, "all_gather_object", every_rank_sends_this)
+        monkeypatch.setattr(PM, "resolve_device", lambda d="cuda": torch.device(d))
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+        assert PP.local_rank() == 0 and PP.rank() == 1
+        assert PP.make_mesh(4).devices[2:] == (torch.device("cuda", 0), torch.device("cuda", 1))
+        monkeypatch.setenv("LOCAL_RANK", "1")
+        mesh = PP.make_mesh(4)
+        assert mesh.ranks == (0, 0, 1, 1) and mesh.local_slots == (2, 3)
+        assert mesh.devices[2:] == (torch.device("cuda", 2), torch.device("cuda", 3))
+        assert PP.make_mesh(4, device="cuda").devices[2:] == mesh.devices[2:]
+        monkeypatch.setattr(dist, "get_backend", lambda *a, **k: "nccl")
+        with pytest.raises(ValueError, match="one card, not 2 slots"):
+            PP.make_mesh(4)
+        monkeypatch.setattr(torch.cuda, "current_device", lambda: 1)
+        assert PP.make_mesh(2).devices == (torch.device("cuda", 1),) * 2
+        with pytest.raises(ValueError, match="its own card cuda:1, not cuda:0"):
+            PP.make_mesh(2, device="cuda:0")
     finally:
         monkeypatch.undo()
         dist.destroy_process_group()
