@@ -35,7 +35,12 @@ Phases, each of which must pass:
 9. all-pairs times: B3 in both tiers and B4 on the inputs the path gave
    them, beside their bounds, their plain versions and one PyTorch call
    computing the same; B3 at the long-record entry's shapes (2048 channels
-   x 61440 samples, 119 windows in slabs of 32);
+   x 61440 samples, 119 windows in slabs of 32); then the ambient day stack
+   at the PoroTomo DASH deployment's size (``pipeline.ambient``): one
+   8721 x 30000 record through ``DayStack.add`` with its launch counts (137
+   of B3, none else), B3's output of the first, the first full-band and the
+   last launch equal bit for bit to its plain version on that launch's own
+   inputs, the pairs past the array's ends zero, a second record's time;
 10. dot kernel vs plain: the dot finish (B2) against its plain version on the
    card in both precision tiers, forward and swapped, at edge shapes (wlen
    250, 256, 64, 33 and 128; one window, 16 at wlen 256 and 64 at wlen 128,
@@ -261,7 +266,22 @@ B3_CASES = {"m1_ragged_slab": (1, 10000 - 7, 7, 513, 3),
             "nall_below_tile_nf33": (64, 5, 7, 33, None),
             "nf1": (7, 300, 7, 1, None),
             "auto_slabs_nwin50": (9, 50, 50, 33, None),
-            "auto_slabs_nwin119": (64, 200, 119, 513, None)}
+            "auto_slabs_nwin119": (64, 200, 119, 513, None),
+            # the day stack's launches (DAY_STACK): a full band, the band
+            # clipped at row 0, the ragged last chunk against its clipped band
+            "dash_full_band": (64, 664, 13, 2049, None),
+            "dash_first_band": (64, 364, 13, 2049, None),
+            "dash_last_chunk": (17, 317, 13, 2049, None)}
+# The PoroTomo DASH day stack (``pipeline.ambient`` at ``AmbientConfig()``'s
+# defaults, the cell allpairs_record): 8721 channels x 30000 samples at 1 kHz,
+# 4096-sample windows at 50 % (13 windows, 2049 bins), receivers within 300
+# channels, chunks of 64 sources: ceil(8721/64) = 137 launches of B3 a record.
+# Launch 0 (64 x 364, its band clipped at row 0), launch 5 (the first full
+# band, 64 x 664) and launch 136 (17 x 317) are held against B3's plain
+# version on their own inputs.
+DAY_STACK = dict(nch=8721, nt=30000, seed=29)
+DAY_STACK_LAUNCHES = {"traj_gather": 0, "traj_dot": 0, "cross_spectra": 137, "lag_absmax": 0}
+DAY_STACK_HELD = {0: (64, 364), 5: (64, 664), 136: (17, 317)}
 # bench.py's long-record entry: 2048 channels x 61440 samples at wlen 1024
 # (119 windows, slabs of 32, 32, 32 and 23), one launch of 64 source rows
 LONG_RECORD = dict(nch=2048, nt=61440, seed=3, wlen=1024, m=64)
@@ -976,6 +996,82 @@ def phase_long_record() -> dict:
         prep = cs.to_bf16_pairs if tier == "bf16" else (lambda x: x.contiguous())
         out[tier] = _b3_times(prep(wf[:lr["m"]]), prep(wf), nwin, wb, tier, reps=3)
     return out
+
+
+def phase_day_stack() -> dict:
+    """One PoroTomo DASH record (``DAY_STACK``) through ``DayStack.add`` on
+    the card: its launch counts, B3's output of the launches in
+    ``DAY_STACK_HELD`` against its plain version on those launches' own
+    inputs (bit for bit, as in ``phase_allpairs_kernels_vs_plain``), the
+    pairs past either end of the array zero, then a second record's time."""
+    from das_diff_veh_tpu_torch.config import AmbientConfig
+    from das_diff_veh_tpu_torch.ops import cross_spectra as cs
+    from das_diff_veh_tpu_torch.ops import lag_absmax as la
+    from das_diff_veh_tpu_torch.pipeline.ambient import DayStack
+    from das_diff_veh_tpu_torch.workloads import make_ambient_record
+
+    cfg = AmbientConfig()
+    nch = DAY_STACK["nch"]
+    rec = make_ambient_record(nch, DAY_STACK["nt"], seed=DAY_STACK["seed"])
+    stack = DayStack(nch, cfg)
+    kept: dict = {}
+    launch = cs.cross_spectra_cuda
+    seen = [0]
+
+    def keeping(*args):
+        out = launch(*args)
+        if seen[0] in DAY_STACK_HELD:
+            kept[seen[0]] = (args, out)
+        seen[0] += 1
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with swapped_launches(keeping, la.lag_absmax_cuda):
+        reset_counts()
+        t0 = time.perf_counter()
+        stack.add(rec)
+        first_s = time.perf_counter() - t0
+        counts = read_counts()
+    log(f"day stack: DayStack.add of {tuple(rec.shape)} into {tuple(stack.sum.shape)} in "
+        f"{first_s:.3f} s (first call), launches {counts}")
+    if counts != DAY_STACK_LAUNCHES:
+        raise AssertionError(f"expected launches {DAY_STACK_LAUNCHES} in the day stack, got "
+                             f"{counts}")
+    held = {}
+    for i, (src, rcv, nwin, wb), out in ((i, *kept[i]) for i in sorted(DAY_STACK_HELD)):
+        shape = (src.shape[0], rcv.shape[0])
+        p = cs.cross_spectra_plain(src, rcv, nwin, wb)
+        torch.cuda.synchronize()
+        equal = shape == DAY_STACK_HELD[i] and bool(torch.equal(out, p))
+        log(f"day stack B3 launch {i} vs plain [m={shape[0]} nall={shape[1]} nwin={nwin} "
+            f"nf={src.shape[2]} win_block={wb}]: equal={equal}")
+        if not equal:
+            raise AssertionError(f"day stack: B3 launch {i} ({shape}, expected "
+                                 f"{DAY_STACK_HELD[i]}) != its plain version")
+        held[f"launch{i}"] = {"m": shape[0], "nall": shape[1], "equal": True}
+        del p
+    del kept
+    ends = stack.flush([0, nch - 1])
+    off = cfg.max_offset
+    zero_outside = bool(np.all(ends[0, :off] == 0) and np.all(ends[1, off + 1:] == 0))
+    live_inside = bool(np.all(np.isfinite(ends)) and np.all(np.abs(ends[0, off:]).max(axis=1) > 0)
+                       and np.all(np.abs(ends[1, :off + 1]).max(axis=1) > 0))
+    log(f"day stack: pairs past the array's ends zero {zero_outside}, finite and live "
+        f"inside {live_inside}")
+    if not (zero_outside and live_inside):
+        raise AssertionError("day stack: the end sources' gathers are not zero exactly past "
+                             "the array's ends")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stack.add(rec)
+    warm_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    log(f"day stack: second record {warm_s:.3f} s, memory peak {peak} B")
+    del stack, rec
+    torch.cuda.empty_cache()
+    return {"first_add_s": first_s, "warm_add_s": warm_s, "launches": counts,
+            "held_vs_plain": held, "ends_zero_outside": True, "memory_peak_bytes": peak}
 
 
 def phase_allpairs_times(path: dict) -> list:
@@ -4227,6 +4323,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         results["long_record"] = phase_long_record()
         torch.cuda.empty_cache()
+        results["day_stack"] = phase_day_stack()
         WATCH.phase = "10-13 dot and surface_wave"
         results["dot_kernel_vs_plain"] = phase_dot_kernel_vs_plain()
         dot = phase_dot_chunk(section)

@@ -8,6 +8,8 @@ The port keeps its own copy because the JAX package's ``__init__`` imports
 JAX.  Knobs the port does not implement
 yet keep their field so a JAX configuration converts one to one
 (``convert.config_from_dict``); the functions that would read them raise.
+``AmbientConfig`` is the port's own: the ambient-noise day stack of
+``pipeline.ambient`` has no counterpart in the JAX package.
 """
 
 from __future__ import annotations
@@ -450,6 +452,49 @@ class RingConfig:
     precision: str = "f32"
     """Tier of the ring's correlation: ``"f32"`` or ``"bf16"`` (bfloat16
     spectra, float32 sums)."""
+
+
+@dataclass(frozen=True)
+class AmbientConfig:
+    """The ambient-noise day stack (``pipeline.ambient``): Bensen et al.
+    (2007)'s one-bit normalisation, spectral whitening, windowed
+    cross-correlation and linear stack, kept for every channel pair within
+    ``max_offset`` channels and for the lags within ``max_lag`` samples of
+    zero.  The port's own: the JAX package computes no such product.  The
+    defaults are the PoroTomo DASH day stack (1 m channels at 1000 Hz)."""
+
+    fs: float = 1000.0
+    """Sampling rate of the records [Hz]."""
+
+    wlen: int = 4096
+    """Samples a correlation window."""
+
+    overlap_ratio: float = 0.5
+    """Overlap of consecutive windows (0.5: a window every ``wlen // 2``)."""
+
+    band_hz: Tuple[float, float] = (2.0, 50.0)
+    """Whitening band: the bins from ``ceil(lo * wlen / fs)`` to
+    ``floor(hi * wlen / fs)`` keep their phase at unit amplitude, every
+    other bin is zeroed."""
+
+    one_bit: bool = True
+    """Replace each sample by its sign before the windows are cut."""
+
+    whiten: bool = True
+    """Whiten the window spectra over ``band_hz``; False keeps them whole."""
+
+    max_offset: int = 300
+    """Receivers kept on each side of a source, in channels."""
+
+    max_lag: int = 1000
+    """Lags kept on each side of zero lag, in samples."""
+
+    src_chunk: int = 64
+    """Source rows a cross-spectra launch; each is correlated against the
+    ``src_chunk + 2 * max_offset`` receiver rows around it."""
+
+    def replace(self, **kw) -> "AmbientConfig":
+        return dataclasses.replace(self, **kw)
 
 
 @dataclass(frozen=True)

@@ -32,11 +32,27 @@ cross-spectra; the fused finish pads every irfft batch to one shape (see
 ``_fused_peak_finish``).  Results per pair are unchanged.  The JAX entries'
 ``interpret`` and ``lag_tile_max`` are TPU tiling knobs and have no
 counterpart here.
+
+The banded lag-domain product (:func:`add_banded`, under the ambient-noise
+day stack of ``pipeline.ambient``) keeps only the pairs within ``max_offset`` rows of
+each other and the lags within ``max_lag`` samples of zero, as a
+(nch, 2*max_offset+1, 2*max_lag+1) gather per source; it goes beyond the JAX
+package, whose lag-domain entry returns every pair.  Each chunk of source
+rows is correlated against its own receiver band, a contiguous row slice of
+the receiver spectra, clipped at the array's ends, so B3 runs as it is (a
+pair's bits from B3 do not depend on the receiver set).  Every irfft takes
+one batch shape, (src_chunk, src_chunk + 2*max_offset): the band of a
+ragged or clipped chunk is zero-padded to it, so that pairs past either end
+of the array read 0 and a pair's bits do not depend on the chunk it falls
+in.  Each source's receivers are taken out of the lag block as a strided
+view, no copy, and added into the caller's gather with the irfft's 1/wlen
+as the add's scale.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+import contextlib
+from typing import Callable, ContextManager
 
 import torch
 
@@ -260,3 +276,68 @@ def peak_from_spectra(wf_src, wf_all, wlen: int, src_chunk: int, use_kernel: boo
         return torch.fft.irfft(c, n=wlen, dim=-1).abs().amax(dim=-1)
 
     return _chunked(wf_src, src_chunk, finish)
+
+
+def band_schedule(nch: int, src_chunk: int, max_offset: int) -> list:
+    """``(s0, s1, r0, r1)`` of every chunk of the banded entry: source rows
+    ``s0:s1`` against receiver rows ``r0:r1``, the ``max_offset`` rows on
+    either side of the chunk clipped to the array."""
+    if src_chunk < 1 or max_offset < 0:
+        raise ValueError(f"src_chunk must be >= 1 and max_offset >= 0, got {src_chunk} "
+                         f"and {max_offset}")
+    return [(s0, min(s0 + src_chunk, nch), max(s0 - max_offset, 0),
+             min(s0 + src_chunk + max_offset, nch)) for s0 in range(0, nch, src_chunk)]
+
+
+def _banded_finish(cross: torch.Tensor, out: torch.Tensor, s0: int, r0: int, wlen: int,
+                   max_offset: int, max_lag: int, src_chunk: int) -> None:
+    """Add (m, nb, nf) cross-spectra of source rows ``s0:s0+m`` against
+    receiver rows ``r0:r0+nb`` into ``out`` (m, 2*max_offset+1,
+    2*max_lag+1) in the lag domain (module docstring)."""
+    m, nb, _ = cross.shape
+    width = src_chunk + 2 * max_offset
+    lead = r0 - (s0 - max_offset)          # band rows clipped below row 0
+    if (m, nb) != (src_chunk, width):
+        cross = torch.nn.functional.pad(cross, (0, 0, lead, width - nb - lead,
+                                                0, src_chunk - m))
+    lag = torch.fft.irfft(cross, n=wlen, dim=-1, norm="forward")   # unscaled
+    # source i's receivers are band rows i .. i + 2*max_offset
+    diag = lag.as_strided((m, 2 * max_offset + 1, wlen),
+                          (lag.stride(0) + lag.stride(1), lag.stride(1), lag.stride(2)),
+                          lag.storage_offset())
+    scale = 1.0 / wlen
+    out[..., :max_lag].add_(diag[..., wlen - max_lag:], alpha=scale)   # lags -L .. -1
+    out[..., max_lag:].add_(diag[..., :max_lag + 1], alpha=scale)      # lags 0 .. L
+
+
+def _no_block(name: str):
+    return contextlib.nullcontext()
+
+
+def add_banded(wf: torch.Tensor, out: torch.Tensor, wlen: int, max_offset: int,
+               max_lag: int, src_chunk: int = 64, use_kernel: bool = True,
+               block: Callable[[str], ContextManager] = _no_block) -> None:
+    """Add the banded lag-domain xcorr of (nch, nwin, nf) window spectra
+    ``wf`` into ``out`` (nch, 2*max_offset+1, 2*max_lag+1) float32 on the
+    same device: ``out[s, j, L + k]`` gains the window-mean correlation of
+    source row ``s`` with receiver row ``s + j - max_offset`` at lag ``k``
+    (0 for a receiver past either end of the array).  ``use_kernel``: B3
+    (its plain version on the CPU) or the einsum.  ``block(name)`` wraps
+    each chunk's ``"cross"`` and ``"finish"`` work (the pipeline's device
+    blocks)."""
+    nch, nwin, _ = wf.shape
+    if 2 * max_lag + 1 > wlen:
+        raise ValueError(f"max_lag={max_lag} keeps more than the {wlen} lags of a window")
+    if out.shape != (nch, 2 * max_offset + 1, 2 * max_lag + 1):
+        raise ValueError(f"out must be {(nch, 2 * max_offset + 1, 2 * max_lag + 1)}, "
+                         f"got {tuple(out.shape)}")
+    wb = _resolve_win_block(nwin, None)
+    for s0, s1, r0, r1 in band_schedule(nch, src_chunk, max_offset):
+        with block("cross"):
+            if use_kernel:
+                c = cross_spectra(wf[s0:s1], wf[r0:r1], nwin, wb)
+            else:
+                c = _einsum_cross_spectra(wf[s0:s1], wf[r0:r1], wb)
+        with block("finish"):
+            _banded_finish(c, out[s0:s1], s0, r0, wlen, max_offset, max_lag, src_chunk)
+

@@ -22,7 +22,11 @@ under the host spans.  A caller opens a unit (``timeline.unit(name,
 wraps each block in :func:`device_work`, so that the host work between the
 blocks (hashing a program key, building a result) stays out of the device
 spans: an event recorded on an idle stream takes the time it is recorded,
-not the time the device starts the next kernel.  Code that cannot take span
+not the time the device starts the next kernel.  A unit whose device work
+interleaves several stages (the ambient day stack's cross-spectra and finish,
+chunk after chunk) names each block (``device_work(name)``): the block's
+span takes that name in place of the unit's, and all of them are emitted
+when the unit ends, with one wait for the card.  Code that cannot take span
 arguments from its caller (a serving factory's program) reads them from
 :func:`span_args`, set by the caller with :func:`with_span_args`.
 """
@@ -222,18 +226,23 @@ class DeviceTimeline:
     sits at the anchor's host time plus its elapsed time from the anchor.
 
     It records only where ``tracer.device_timeline`` is true (a tracer
-    without the attribute counts as false) and ``device`` is a CUDA device;
-    otherwise, and inside a CUDA graph capture, ``mark`` returns None and
-    creates no event, and ``emit`` of a None mark does nothing.  Marks may
-    come from several threads.
+    without the attribute counts as false; read at each mark, so a tracer
+    may turn it off part way) and ``device`` is a CUDA device; otherwise,
+    and inside a CUDA graph capture, ``mark`` returns None and creates no
+    event, and ``emit`` of a None mark does nothing.  Marks may come from
+    several threads.
     """
 
     def __init__(self, tracer, device):
         self.tracer = tracer
         self.device = None if device is None else torch.device(device)
-        self.active = bool(getattr(tracer, "device_timeline", False)) and _on_card(self.device)
+        self._card = _on_card(self.device)
         self._anchor = None             # (event, tracer microseconds)
         self._lock = threading.Lock()
+
+    @property
+    def active(self) -> bool:
+        return self._card and bool(getattr(self.tracer, "device_timeline", False))
 
     def _anchored(self, stream) -> None:
         with self._lock:
@@ -275,9 +284,9 @@ class DeviceTimeline:
     @contextmanager
     def unit(self, name: str, **args) -> Iterator[None]:
         """One unit of work on this thread: each :func:`device_work` block
-        inside it becomes a device span ``name`` with ``args``, emitted
-        when the unit ends (after its last block has completed; nothing is
-        emitted if the unit raises)."""
+        inside it becomes a device span ``name`` (or the block's own name)
+        with ``args``, emitted when the unit ends (after its last block has
+        completed; nothing is emitted if the unit raises)."""
         if not self.active:
             yield
             return
@@ -288,8 +297,8 @@ class DeviceTimeline:
             yield
         finally:
             _local.unit = prev
-        for m0, m1 in blocks:
-            self.emit(name, m0, m1, **args)
+        for m0, m1, block in blocks:
+            self.emit(block or name, m0, m1, **args)
 
     def offset_us(self, stream=None) -> Optional[float]:
         """An event recorded and completed now, on the tracer's clock, less
@@ -304,12 +313,13 @@ class DeviceTimeline:
 
 
 @contextmanager
-def device_work() -> Iterator[None]:
+def device_work(name: Optional[str] = None) -> Iterator[None]:
     """Marks on the current stream before and after a block of device work,
-    for the unit open on this thread; no unit, no event.  Put it next to
-    the enqueue, with no host work inside that leaves the device waiting,
-    and end it where the work is enqueued (or, where the block waits for the
-    device, once it has)."""
+    for the unit open on this thread; no unit, no event.  ``name``: the
+    block's span name, in place of the unit's.  Put it next to the enqueue,
+    with no host work inside that leaves the device waiting, and end it
+    where the work is enqueued (or, where the block waits for the device,
+    once it has)."""
     unit = getattr(_local, "unit", None)
     if unit is None:
         yield
@@ -317,7 +327,7 @@ def device_work() -> Iterator[None]:
     timeline, blocks = unit
     m0 = timeline.mark()
     yield
-    blocks.append((m0, timeline.mark()))
+    blocks.append((m0, timeline.mark(), name))
 
 
 def make_tracer(path: Optional[str],

@@ -1164,3 +1164,106 @@ def test_device_timeline_of_served_requests_covers_their_device_work(card):
     ev = [(s, e) for _, s, e, _ in spans]
     covered, kernels = _covered_us(ev, busy, lo, hi), _busy_us(busy, lo, hi)
     assert covered >= 0.9 * kernels, (covered, kernels, _busy_us(ev, lo, hi), hi - lo)
+
+
+# ---- the ambient-noise day stack (pipeline.ambient) on the card ----
+
+def _ambient_reference():
+    import importlib.util
+
+    path = Path(__file__).resolve().parent.parent / "benchmark" / "reference" / "ambient" / "ncf.py"
+    spec = importlib.util.spec_from_file_location("ambient_reference_ncf", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("rows", [(400, 464), (983, 1000)], ids=["full_chunk", "last_chunk"])
+def test_cross_spectra_on_a_receiver_band_equals_its_full_receiver_result(card, rows):
+    """B3 at the day stack's shapes (13 windows, 2049 bins): a chunk against
+    its 664-row band (or the last chunk's 17 rows against its clipped
+    317-row band) gives the bits of the same chunk against every row."""
+    from das_diff_veh_tpu_torch.ops import cross_spectra as cs
+
+    wf = _spectra(card, 1000, 13, 2049, 21)
+    s0, s1 = rows
+    r0, r1 = max(s0 - 300, 0), min(s1 + 300, wf.shape[0])
+    full = cs.cross_spectra_cuda(wf[s0:s1], wf, 13, 13)
+    band = cs.cross_spectra_cuda(wf[s0:s1], wf[r0:r1], 13, 13)
+    torch.cuda.synchronize()
+    assert torch.equal(full[:, r0:r1], band)
+
+
+def test_banded_finish_pair_bits_do_not_depend_on_the_chunk(card):
+    """The same spectra with the first row dropped put every pair in
+    another chunk and at another place in it (and clip other bands); each
+    pair's lags come out the same bits, since every irfft takes one batch
+    shape."""
+    from das_diff_veh_tpu_torch.ops.all_pairs import add_banded
+
+    wf = _spectra(card, 300, 13, 2049, 22)
+    off, lag, chunk = 40, 100, 64
+    a = torch.zeros((300, 2 * off + 1, 2 * lag + 1), device=card)
+    b = torch.zeros((299, 2 * off + 1, 2 * lag + 1), device=card)
+    add_banded(wf, a, 4096, off, lag, chunk, use_kernel=True)
+    add_banded(wf[1:].contiguous(), b, 4096, off, lag, chunk, use_kernel=True)
+    torch.cuda.synchronize()
+    for s in range(1, 300):
+        j0 = max(off - s + 1, 0)                 # receivers from row 1 on
+        assert torch.equal(a[s, j0:], b[s - 1, j0:]), s
+
+
+def test_day_stack_of_a_full_width_record_matches_the_reference(card):
+    """One 8721 x 30000 record of the PoroTomo DASH deployment through the
+    day stack, four sources (both array ends and a chunk edge) against the
+    plain reference on the card, each within 1e-5 of its gather's peak:
+    both sides float32, summed in other orders (B3's against the einsum's,
+    cuFFT's batches)."""
+    import numpy as np
+
+    from das_diff_veh_tpu_torch.config import AmbientConfig
+    from das_diff_veh_tpu_torch.ops import cross_spectra as cs
+    from das_diff_veh_tpu_torch.pipeline.ambient import DayStack
+
+    cfg = AmbientConfig()
+    gen = torch.Generator(device=card).manual_seed(23)
+    rec = torch.randn((8721, 30000), generator=gen, device=card)
+    stack = DayStack(8721, cfg, card)
+    before = cs.launches
+    stack.add(rec)
+    assert cs.launches - before == 137
+    sources = [0, 64, 4000, 8720]
+    got = stack.flush(sources)
+    del stack
+    torch.cuda.empty_cache()
+    want = _ambient_reference().gathers(
+        rec, sources, fs=cfg.fs, wlen=cfg.wlen, overlap_ratio=cfg.overlap_ratio,
+        band_hz=cfg.band_hz, max_offset=cfg.max_offset, max_lag=cfg.max_lag,
+        device=card).cpu().numpy()
+    assert got.shape == (4, 601, 2001)
+    for g, w in zip(got, want):
+        assert float(np.abs(g - w).max() / np.abs(w).max()) <= 1e-5
+    assert np.all(got[0, :300] == 0) and np.all(got[3, 301:] == 0)
+
+
+def test_day_stack_device_blocks_on_card(card):
+    """With the device timeline on, a record gives one ``ambient_stage`` and
+    one ``ambient_spectra`` device span and one ``ambient_cross`` and one
+    ``ambient_finish`` span a source chunk, each with its ``record``."""
+    import numpy as np
+
+    from das_diff_veh_tpu_torch.config import AmbientConfig
+    from das_diff_veh_tpu_torch.pipeline.ambient import stack_records
+
+    recs = [np.random.default_rng(k).standard_normal((200, 30000)).astype(np.float32)
+            for k in range(2)]
+    tracer = _EventTracer()
+    run = stack_records(recs, AmbientConfig(max_offset=50, max_lag=200), tracer=tracer,
+                        device=card)
+    assert run.records == 2 and not run.quarantined
+    chunks = len(run.stack.schedule)
+    for name, per in [("ambient_stage", 1), ("ambient_spectra", 1), ("ambient_cross", chunks),
+                      ("ambient_finish", chunks)]:
+        recs_seen = [a["record"] for n, _, _, a in tracer.device_spans if n == name]
+        assert sorted(recs_seen) == [0] * per + [1] * per, name
+    assert all(e >= s for _, s, e, _ in tracer.device_spans)

@@ -295,3 +295,61 @@ def test_engine_spans_of_a_request_share_its_rid(fake_card, tmp_path):
         admit = next(e for e in spans if e["name"] == "admit")
         assert admit["tid"] in senders
         assert {e["tid"] for e in spans if e.get("cat") == "device"} == {T.DEVICE_TID}
+
+
+def test_stages_keep_each_block_under_its_stage_until_the_unit_ends(fake_card, tmp_path):
+    """Named ``device_work`` blocks in a unit come out as spans of their own
+    names (an unnamed one of the unit's) with the unit's arguments, all at
+    once when the unit ends; outside a unit a named block is nothing, an
+    inactive timeline makes no event, and a tracer that turns its device
+    timeline off part way stops the events from its next mark on."""
+    tracer = _Recorder(str(tmp_path / "t.jsonl"))
+    tl = T.DeviceTimeline(tracer, torch.device("cpu"))
+    with tl.unit("record", record=3):
+        for name in ("cross", "finish", "cross", None):
+            with T.device_work(name):
+                pass
+        assert tracer.device_calls == []
+    assert [(n, a) for n, _, _, a in tracer.device_calls] == \
+        [(n, {"record": 3}) for n in ("cross", "finish", "cross", "record")]
+    assert all(e >= s for _, s, e, _ in tracer.device_calls)
+    with T.device_work("cross"):
+        pass
+    assert len(tracer.device_calls) == 4
+    made = fake_card.made
+    off = T.DeviceTimeline(_Recorder(str(tmp_path / "u.jsonl"), device_timeline=False),
+                           torch.device("cpu"))
+    with off.unit("record", record=4), T.device_work("cross"):
+        pass
+    assert fake_card.made == made
+    with tl.unit("record", record=5):
+        with T.device_work("cross"):
+            pass
+        tracer.device_timeline = False
+        with T.device_work("finish"):
+            pass
+    assert not tl.active and fake_card.made == made + 2
+    assert [(n, a) for n, _, _, a in tracer.device_calls[4:]] == [("cross", {"record": 5})]
+    tracer.close()
+
+
+def test_day_stack_device_spans_by_stage(fake_card, tmp_path):
+    """The day stack's device blocks through the program: a record gives one
+    ``ambient_spectra`` span and an ``ambient_cross`` and an
+    ``ambient_finish`` span a source chunk, each with its ``record``."""
+    from das_diff_veh_tpu_torch.config import AmbientConfig
+    from das_diff_veh_tpu_torch.pipeline.ambient import stack_records
+
+    recs = [np.random.default_rng(k).standard_normal((40, 1200)).astype(np.float32)
+            for k in range(2)]
+    tracer = _Recorder(str(tmp_path / "t.jsonl"))
+    cfg = AmbientConfig(fs=1000.0, wlen=256, band_hz=(20.0, 300.0), max_offset=8,
+                        max_lag=20, src_chunk=16)
+    run = stack_records(recs, cfg, tracer=tracer, device="cpu")
+    tracer.close()
+    assert run.records == 2 and len(run.stack.schedule) == 3
+    for name, per in [("ambient_spectra", 1), ("ambient_cross", 3), ("ambient_finish", 3)]:
+        seen = [a["record"] for n, _, _, a in tracer.device_calls if n == name]
+        assert sorted(seen) == [0] * per + [1] * per, name
+    assert {n for n, *_ in tracer.device_calls} == {"ambient_spectra", "ambient_cross",
+                                                     "ambient_finish"}
