@@ -278,9 +278,13 @@ B3_CASES = {"m1_ragged_slab": (1, 10000 - 7, 7, 513, 3),
 # channels, chunks of 64 sources: ceil(8721/64) = 137 launches of B3 a record.
 # Launch 0 (64 x 364, its band clipped at row 0), launch 5 (the first full
 # band, 64 x 664) and launch 136 (17 x 317) are held against B3's plain
-# version on their own inputs.
+# version on their own inputs, and so are the band finish's launches of the
+# same chunks (csrc/band_lag_add.cu, one a chunk: whitening leaves bins
+# 9..204), within DAY_STACK_BAND_GAP of each gather's peak.
 DAY_STACK = dict(nch=8721, nt=30000, seed=29)
 DAY_STACK_LAUNCHES = {"traj_gather": 0, "traj_dot": 0, "cross_spectra": 137, "lag_absmax": 0}
+DAY_STACK_BAND_LAUNCHES = 137
+DAY_STACK_BAND_GAP = 1e-6
 DAY_STACK_HELD = {0: (64, 364), 5: (64, 664), 136: (17, 317)}
 # bench.py's long-record entry: 2048 channels x 61440 samples at wlen 1024
 # (119 windows, slabs of 32, 32, 32 and 23), one launch of 64 source rows
@@ -1003,8 +1007,12 @@ def phase_day_stack() -> dict:
     the card: its launch counts, B3's output of the launches in
     ``DAY_STACK_HELD`` against its plain version on those launches' own
     inputs (bit for bit, as in ``phase_allpairs_kernels_vs_plain``), the
-    pairs past either end of the array zero, then a second record's time."""
+    band finish's launches of the same chunks against its plain version
+    (:func:`_band_finish_held`), the pairs past either end of the array
+    zero, a second record's time, then the band finish's times
+    (:func:`_band_finish_times`)."""
     from das_diff_veh_tpu_torch.config import AmbientConfig
+    from das_diff_veh_tpu_torch.ops import band_lag_add as bla
     from das_diff_veh_tpu_torch.ops import cross_spectra as cs
     from das_diff_veh_tpu_torch.ops import lag_absmax as la
     from das_diff_veh_tpu_torch.pipeline.ambient import DayStack
@@ -1015,8 +1023,9 @@ def phase_day_stack() -> dict:
     rec = make_ambient_record(nch, DAY_STACK["nt"], seed=DAY_STACK["seed"])
     stack = DayStack(nch, cfg)
     kept: dict = {}
-    launch = cs.cross_spectra_cuda
-    seen = [0]
+    band_kept: dict = {}
+    launch, band_launch = cs.cross_spectra_cuda, bla.band_lag_add_cuda
+    seen, band_seen = [0], [0]
 
     def keeping(*args):
         out = launch(*args)
@@ -1025,19 +1034,33 @@ def phase_day_stack() -> dict:
         seen[0] += 1
         return out
 
+    def band_keeping(cross, out, *rest):
+        band_launch(cross, out, *rest)
+        if band_seen[0] in DAY_STACK_HELD:       # the stack's rows held nothing before
+            band_kept[band_seen[0]] = (cross, rest, out.clone())
+        band_seen[0] += 1
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    with swapped_launches(keeping, la.lag_absmax_cuda):
-        reset_counts()
-        t0 = time.perf_counter()
-        stack.add(rec)
-        first_s = time.perf_counter() - t0
-        counts = read_counts()
+    bla.band_lag_add_cuda = band_keeping
+    try:
+        with swapped_launches(keeping, la.lag_absmax_cuda):
+            reset_counts()
+            b0 = bla.launches
+            t0 = time.perf_counter()
+            stack.add(rec)
+            first_s = time.perf_counter() - t0
+            counts = read_counts()
+            band_launches = bla.launches - b0
+    finally:
+        bla.band_lag_add_cuda = band_launch
     log(f"day stack: DayStack.add of {tuple(rec.shape)} into {tuple(stack.sum.shape)} in "
-        f"{first_s:.3f} s (first call), launches {counts}")
-    if counts != DAY_STACK_LAUNCHES:
-        raise AssertionError(f"expected launches {DAY_STACK_LAUNCHES} in the day stack, got "
-                             f"{counts}")
+        f"{first_s:.3f} s (first call), launches {counts}, band finish {band_launches}")
+    if counts != DAY_STACK_LAUNCHES or band_launches != DAY_STACK_BAND_LAUNCHES:
+        raise AssertionError(f"expected launches {DAY_STACK_LAUNCHES} and "
+                             f"{DAY_STACK_BAND_LAUNCHES} of the band finish in the day stack, "
+                             f"got {counts} and {band_launches}")
+    band_held = _band_finish_held(band_kept)
     held = {}
     for i, (src, rcv, nwin, wb), out in ((i, *kept[i]) for i in sorted(DAY_STACK_HELD)):
         shape = (src.shape[0], rcv.shape[0])
@@ -1070,8 +1093,73 @@ def phase_day_stack() -> dict:
     log(f"day stack: second record {warm_s:.3f} s, memory peak {peak} B")
     del stack, rec
     torch.cuda.empty_cache()
-    return {"first_add_s": first_s, "warm_add_s": warm_s, "launches": counts,
-            "held_vs_plain": held, "ends_zero_outside": True, "memory_peak_bytes": peak}
+    band_times = _band_finish_times(band_kept[5], cfg)
+    del band_kept
+    torch.cuda.empty_cache()
+    return {"first_add_s": first_s, "warm_add_s": warm_s,
+            "launches": {**counts, "band_lag_add": band_launches},
+            "held_vs_plain": held, "band_held_vs_plain": band_held,
+            "band_finish_times": band_times, "ends_zero_outside": True,
+            "memory_peak_bytes": peak}
+
+
+def _band_finish_held(band_kept: dict) -> dict:
+    """Each held launch of the band finish (its cross-spectra and the stack
+    rows it wrote, which held zeros before) against the plain version on
+    the same inputs on the card, within ``DAY_STACK_BAND_GAP`` of each
+    gather's peak."""
+    from das_diff_veh_tpu_torch.ops import band_lag_add as bla
+
+    held = {}
+    for i in sorted(DAY_STACK_HELD):
+        cross, (lead, lo, hi, wlen, lag), got = band_kept[i]
+        want = torch.zeros_like(got)
+        bla.band_lag_add_plain(cross, want, lead, lo, hi, wlen, lag)
+        torch.cuda.synchronize()
+        peak = want.abs().flatten(1).amax(1)
+        gap = float(((got - want).abs().flatten(1).amax(1) / peak).max())
+        shape = (cross.shape[0], cross.shape[1])
+        log(f"day stack band finish launch {i} vs plain [m={shape[0]} nb={shape[1]} "
+            f"lead={lead} bins {lo}..{hi}]: gap {gap:.3e} of each gather's peak")
+        if shape != DAY_STACK_HELD[i] or not gap <= DAY_STACK_BAND_GAP:
+            raise AssertionError(f"day stack: band finish launch {i} ({shape}) is {gap} of "
+                                 f"its gathers' peaks off its plain version")
+        held[f"launch{i}"] = {"m": shape[0], "nb": shape[1], "gap": gap}
+        del want
+    return held
+
+
+def _band_finish_times(launch5, cfg) -> dict:
+    """The band finish on a full chunk's inputs (launch 5: 64 sources x
+    664 receiver rows) into a scratch stack slice, between CUDA events,
+    beside its bound, its plain version, and the irfft finish it replaces
+    on the same chunk (``_banded_finish`` without a band: the clone cuFFT
+    asks for, the padded c2r and the strided band add) as the yardstick."""
+    from das_diff_veh_tpu_torch.ops import all_pairs as ap
+    from das_diff_veh_tpu_torch.ops import band_lag_add as bla
+
+    cross, (lead, lo, hi, wlen, lag), _ = launch5
+    m, nb = cross.shape[:2]
+    width = 2 * cfg.max_offset + 1
+    s0 = 5 * cfg.src_chunk
+    r0 = s0 - cfg.max_offset + lead
+    scratch = torch.zeros((m, width, 2 * lag + 1), device=cross.device)
+    ms = event_ms(lambda: bla.band_lag_add_cuda(cross, scratch, lead, lo, hi, wlen, lag),
+                  reps=20)
+    plain_ms = event_ms(lambda: bla.band_lag_add_plain(cross, scratch, lead, lo, hi, wlen, lag),
+                        reps=2)
+    irfft_ms = event_ms(lambda: ap._banded_finish(cross, scratch, s0, r0, wlen, cfg.max_offset,
+                                                  lag, cfg.src_chunk), reps=20)
+    nbytes = bla.bytes_moved(m, nb, width, lead, lo, hi, lag)
+    ops = bla.flops(m, nb, width, lead, lo, hi, wlen, lag)
+    bound, by = _bound(nbytes, ops)
+    log(f"band finish per launch [m={m} nb={nb} bins {lo}..{hi}]: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.3f} ms, irfft finish {irfft_ms:.4f} ms, bound {bound:.4f} ms ({by}: "
+        f"{nbytes / 1e9:.3f} GB, {ops / 1e9:.1f} GFLOP), {100 * bound / ms:.1f} % of it")
+    del scratch
+    return {"ms": ms, "plain_ms": plain_ms, "irfft_finish_ms": irfft_ms, "bound_ms": bound,
+            "bound_by": by, "bytes": nbytes, "flops": ops,
+            "source": "das_diff_veh_tpu_torch/csrc/band_lag_add.cu", "replaces": None}
 
 
 def phase_allpairs_times(path: dict) -> list:

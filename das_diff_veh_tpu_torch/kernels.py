@@ -24,7 +24,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
-SOURCES = ("traj_gather", "traj_dot", "cross_spectra", "lag_absmax")
+SOURCES = ("traj_gather", "traj_dot", "cross_spectra", "lag_absmax", "band_lag_add")
 
 _LIBS: dict = {}
 build_seconds: dict = {}     # name -> nvcc wall time of this process's build

@@ -1,7 +1,8 @@
 """Numerical operators of the port: filters, resampling, peaks,
 correlation, dispersion, the all-pairs correlation, Welch PSD, the Morlet
 CWT, f-v enhancement (CLAHE + blur), and the wrappers of the hand-written
-kernels (trajectory gather, cross-spectra, lag-axis peak)."""
+kernels (trajectory gather, cross-spectra, lag-axis peak, the day stack's
+band finish)."""
 
 from das_diff_veh_tpu_torch.ops.cwt import cwt_morlet, pick_travel_times
 from das_diff_veh_tpu_torch.ops.enhance import box_blur_u8, clahe_u8, fv_map_enhance

@@ -40,11 +40,15 @@ each other and the lags within ``max_lag`` samples of zero, as a
 package, whose lag-domain entry returns every pair.  Each chunk of source
 rows is correlated against its own receiver band, a contiguous row slice of
 the receiver spectra, clipped at the array's ends, so B3 runs as it is (a
-pair's bits from B3 do not depend on the receiver set).  Every irfft takes
-one batch shape, (src_chunk, src_chunk + 2*max_offset): the band of a
-ragged or clipped chunk is zero-padded to it, so that pairs past either end
-of the array read 0 and a pair's bits do not depend on the chunk it falls
-in.  Each source's receivers are taken out of the lag block as a strided
+pair's bits from B3 do not depend on the receiver set).  Where the spectra
+carry a whitening band (``band``: every bin outside it zero), each chunk's
+finish is ``ops.band_lag_add``: a band-pruned inverse FFT a pair that adds
+its lags straight into the gather (a kernel on the card), pairs past either
+end of the array skipped.  Without a band every irfft takes one batch
+shape, (src_chunk, src_chunk + 2*max_offset): the band of a ragged or
+clipped chunk is zero-padded to it, so that pairs past either end of the
+array read 0 and a pair's bits do not depend on the chunk it falls in.
+Each source's receivers are then taken out of the lag block as a strided
 view, no copy, and added into the caller's gather with the irfft's 1/wlen
 as the add's scale.
 """
@@ -57,6 +61,7 @@ from typing import Callable, ContextManager
 import torch
 
 from das_diff_veh_tpu_torch.device import resolve_device
+from das_diff_veh_tpu_torch.ops import band_lag_add as bla
 from das_diff_veh_tpu_torch.ops.cross_spectra import cross_spectra, to_bf16_pairs
 from das_diff_veh_tpu_torch.ops.lag_absmax import lag_absmax
 from das_diff_veh_tpu_torch.ops.precision import bf16_round_complex, check_precision
@@ -290,13 +295,18 @@ def band_schedule(nch: int, src_chunk: int, max_offset: int) -> list:
 
 
 def _banded_finish(cross: torch.Tensor, out: torch.Tensor, s0: int, r0: int, wlen: int,
-                   max_offset: int, max_lag: int, src_chunk: int) -> None:
+                   max_offset: int, max_lag: int, src_chunk: int, band=None) -> bool:
     """Add (m, nb, nf) cross-spectra of source rows ``s0:s0+m`` against
     receiver rows ``r0:r0+nb`` into ``out`` (m, 2*max_offset+1,
-    2*max_lag+1) in the lag domain (module docstring)."""
+    2*max_lag+1) in the lag domain (module docstring).  With ``band`` =
+    ``(lo, hi)``, the bins the spectra keep, and a window ``band_lag_add``
+    takes, the finish is ``band_lag_add``; returns whether it was."""
     m, nb, _ = cross.shape
-    width = src_chunk + 2 * max_offset
     lead = r0 - (s0 - max_offset)          # band rows clipped below row 0
+    if band is not None and bla.takes(wlen):
+        bla.band_lag_add(cross.contiguous(), out, lead, band[0], band[1], wlen, max_lag)
+        return True
+    width = src_chunk + 2 * max_offset
     if (m, nb) != (src_chunk, width):
         cross = torch.nn.functional.pad(cross, (0, 0, lead, width - nb - lead,
                                                 0, src_chunk - m))
@@ -308,6 +318,7 @@ def _banded_finish(cross: torch.Tensor, out: torch.Tensor, s0: int, r0: int, wle
     scale = 1.0 / wlen
     out[..., :max_lag].add_(diag[..., wlen - max_lag:], alpha=scale)   # lags -L .. -1
     out[..., max_lag:].add_(diag[..., :max_lag + 1], alpha=scale)      # lags 0 .. L
+    return False
 
 
 def _no_block(name: str):
@@ -316,7 +327,7 @@ def _no_block(name: str):
 
 def add_banded(wf: torch.Tensor, out: torch.Tensor, wlen: int, max_offset: int,
                max_lag: int, src_chunk: int = 64, use_kernel: bool = True,
-               block: Callable[[str], ContextManager] = _no_block) -> None:
+               block: Callable[[str], ContextManager] = _no_block, band=None) -> bool:
     """Add the banded lag-domain xcorr of (nch, nwin, nf) window spectra
     ``wf`` into ``out`` (nch, 2*max_offset+1, 2*max_lag+1) float32 on the
     same device: ``out[s, j, L + k]`` gains the window-mean correlation of
@@ -324,7 +335,9 @@ def add_banded(wf: torch.Tensor, out: torch.Tensor, wlen: int, max_offset: int,
     (0 for a receiver past either end of the array).  ``use_kernel``: B3
     (its plain version on the CPU) or the einsum.  ``block(name)`` wraps
     each chunk's ``"cross"`` and ``"finish"`` work (the pipeline's device
-    blocks)."""
+    blocks).  ``band``: ``(lo, hi)`` when every bin of ``wf`` outside
+    ``lo..hi`` is zero (whitened spectra), which lets the finish run over
+    the band alone; returns whether it did."""
     nch, nwin, _ = wf.shape
     if 2 * max_lag + 1 > wlen:
         raise ValueError(f"max_lag={max_lag} keeps more than the {wlen} lags of a window")
@@ -332,6 +345,7 @@ def add_banded(wf: torch.Tensor, out: torch.Tensor, wlen: int, max_offset: int,
         raise ValueError(f"out must be {(nch, 2 * max_offset + 1, 2 * max_lag + 1)}, "
                          f"got {tuple(out.shape)}")
     wb = _resolve_win_block(nwin, None)
+    banded = False
     for s0, s1, r0, r1 in band_schedule(nch, src_chunk, max_offset):
         with block("cross"):
             if use_kernel:
@@ -339,5 +353,7 @@ def add_banded(wf: torch.Tensor, out: torch.Tensor, wlen: int, max_offset: int,
             else:
                 c = _einsum_cross_spectra(wf[s0:s1], wf[r0:r1], wb)
         with block("finish"):
-            _banded_finish(c, out[s0:s1], s0, r0, wlen, max_offset, max_lag, src_chunk)
+            banded = _banded_finish(c, out[s0:s1], s0, r0, wlen, max_offset, max_lag,
+                                    src_chunk, band)
+    return bool(banded)
 

@@ -8,9 +8,12 @@ channels within ``AmbientConfig.max_offset`` of each other
 (``ops.all_pairs.add_banded``: kernel B3 on the card, its plain version on
 the CPU), cut to the lags
 within ``max_lag`` of zero, and added into a linear stack that stays on the
-card for the day.  The product is one noise-correlation gather per source
-channel, its ``2*max_offset+1`` nearest receivers by ``2*max_lag+1`` lags:
-the virtual-source gathers of near-surface dispersion imaging.
+card for the day.  Whitened spectra carry their band into the finish, which
+then runs over the band alone (``ops.band_lag_add``: a kernel on the card,
+its plain version on the CPU); without whitening it is the full irfft.  The
+product is one noise-correlation gather per source channel, its
+``2*max_offset+1`` nearest receivers by ``2*max_lag+1`` lags: the
+virtual-source gathers of near-surface dispersion imaging.
 
     run = stack_records(records)          # (nch, nt) arrays or SEG-Y paths
     run = stack_directory("day/")         # every *.sgy / *.segy file, sorted
@@ -34,10 +37,11 @@ key).  The device work of a record is in device blocks of the same names
 and an ``ambient_finish`` block a source chunk, named blocks of one unit a
 record), which a tracer that keeps the device timeline turns into device
 spans once the record is in.  Registry
-counters: ``das_ambient_records_total`` (records stacked) and
-``das_ambient_pairs_total`` (pairs whose cross-spectra were computed, the
-receiver bands' slack included); the tracer's counter ``ambient_records``
-carries the stack's running total.
+counters: ``das_ambient_records_total`` (records stacked),
+``das_ambient_band_finish_records_total`` (those whose finish ran over the
+whitening band alone) and ``das_ambient_pairs_total`` (pairs whose
+cross-spectra were computed, the receiver bands' slack included); the
+tracer's counter ``ambient_records`` carries the stack's running total.
 
 Float32 throughout, TF32 off (``device.resolve_device``).
 """
@@ -52,10 +56,12 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from das_diff_veh_tpu_torch import kernels
 from das_diff_veh_tpu_torch.config import AmbientConfig
 from das_diff_veh_tpu_torch.device import resolve_device
 from das_diff_veh_tpu_torch.io.segy import read_segy
 from das_diff_veh_tpu_torch.obs import default_registry
+from das_diff_veh_tpu_torch.ops import band_lag_add
 from das_diff_veh_tpu_torch.ops.all_pairs import _window_spectra, add_banded, band_schedule
 from das_diff_veh_tpu_torch.ops.noise import band_bins, one_bit, whiten_band
 from das_diff_veh_tpu_torch.runtime import (ChunkTask, RuntimeConfig, make_tracer,
@@ -83,8 +89,12 @@ class DayStack:
                              f"window")
         self.band = band_bins(c.fs, c.wlen, c.band_hz) if c.whiten else None
         self.device = resolve_device(device)
-        if self.device.type == "cuda" and self.device.index is None:
-            self.device = torch.device("cuda", torch.cuda.current_device())
+        if self.device.type == "cuda":
+            if self.device.index is None:
+                self.device = torch.device("cuda", torch.cuda.current_device())
+            # the kernels a record launches, built side by side now
+            banded = self.band is not None and band_lag_add.takes(c.wlen)
+            kernels.build_all(("cross_spectra", "band_lag_add") if banded else ("cross_spectra",))
         self.nch = int(nch)
         self.schedule = band_schedule(self.nch, c.src_chunk, c.max_offset)
         self.pairs_per_record = sum((s1 - s0) * (r1 - r0) for s0, s1, r0, r1 in self.schedule)
@@ -107,10 +117,11 @@ class DayStack:
         return wf
 
     def add(self, data: torch.Tensor, record=None, tracer=None,
-            timeline: Optional[DeviceTimeline] = None) -> None:
+            timeline: Optional[DeviceTimeline] = None) -> bool:
         """Add one (nch, nt) float32 record on the stack's device; returns
-        once its contribution is in the stack.  ``record`` is the spans'
-        key; ``timeline`` the run's device timeline."""
+        once its contribution is in the stack, with whether its finish ran
+        over the whitening band alone.  ``record`` is the spans' key;
+        ``timeline`` the run's device timeline."""
         c = self.cfg
         if self.torn:
             raise RuntimeError("an earlier record failed part way into this stack; "
@@ -135,8 +146,9 @@ class DayStack:
                 wf = self.spectra(data)
             with tracer.span("ambient_cross", **args):
                 self.torn = True            # until the whole record is in
-                add_banded(wf, self.sum, c.wlen, c.max_offset, c.max_lag, c.src_chunk,
-                           block=lambda name: device_work(f"ambient_{name}"))
+                banded = add_banded(wf, self.sum, c.wlen, c.max_offset, c.max_lag,
+                                    c.src_chunk, band=self.band,
+                                    block=lambda name: device_work(f"ambient_{name}"))
             with tracer.span("ambient_finish", **args):
                 if self.device.type == "cuda":
                     torch.cuda.current_stream(self.device).synchronize()
@@ -144,6 +156,7 @@ class DayStack:
         self.records += 1
         self.windows += wf.shape[1]
         self.nt = data.shape[1]
+        return bool(banded)
 
     def flush(self, rows=None, tracer=None) -> np.ndarray:
         """The mean over the records added of the gathers of source ``rows``
@@ -240,6 +253,9 @@ def stack_records(records: Sequence, cfg: Optional[AmbientConfig] = None,
     if registry is not None:
         c_records = registry.counter("das_ambient_records_total",
                                      "records added into an ambient-noise day stack")
+        c_band = registry.counter("das_ambient_band_finish_records_total",
+                                  "records whose day-stack finish ran over the whitening "
+                                  "band alone")
         c_pairs = registry.counter("das_ambient_pairs_total",
                                    "channel pairs whose cross-spectra the day stack computed")
     run = AmbientRun(stack=stack)
@@ -269,12 +285,14 @@ def stack_records(records: Sequence, cfg: Optional[AmbientConfig] = None,
         data = data.to(dev)
         if run.stack is None:
             run.stack = DayStack(data.shape[0], cfg, dev)
-        run.stack.add(data, record=record, tracer=tracer, timeline=timeline)
+        return run.stack.add(data, record=record, tracer=tracer, timeline=timeline)
 
-    def accumulate(task: ChunkTask, _) -> None:
+    def accumulate(task: ChunkTask, banded) -> None:
         run.records += 1
         if registry is not None:
             c_records.inc()
+            if banded:
+                c_band.inc()
             c_pairs.inc(run.stack.pairs_per_record)
         tracer.counter("ambient_records", total=run.stack.records)
 

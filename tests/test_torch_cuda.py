@@ -1267,3 +1267,134 @@ def test_day_stack_device_blocks_on_card(card):
         recs_seen = [a["record"] for n, _, _, a in tracer.device_spans if n == name]
         assert sorted(recs_seen) == [0] * per + [1] * per, name
     assert all(e >= s for _, s, e, _ in tracer.device_spans)
+
+
+# ---- the day stack's band-pruned finish (ops.band_lag_add) on the card ----
+
+# DASH's three launch shapes: sources, receiver rows, lead (band rows
+# clipped below row 0)
+BAND_LAUNCHES = {"first_clipped": (64, 364, 300), "full": (64, 664, 0), "last": (17, 317, 0)}
+
+
+def _band_cross(card, m, nb, seed, lo=9, hi=204, wlen=4096):
+    """Seeded complex64 cross-spectra, zero outside bins lo..hi."""
+    c = _spectra(card, m, nb, wlen // 2 + 1, seed)
+    c[..., :lo] = 0
+    c[..., hi + 1:] = 0
+    return c
+
+
+def _gather_gap(got, want):
+    m = want.shape[0]
+    peak = want.abs().reshape(m, -1).amax(1)
+    return float(((got - want).abs().reshape(m, -1).amax(1) / peak).max())
+
+
+@pytest.mark.parametrize("shape", sorted(BAND_LAUNCHES))
+def test_band_lag_add_kernel_equals_plain(card, shape):
+    """The kernel against its plain version on the card at DASH's launch
+    shapes (4096-sample windows, bins 9..204, 601 slots, +-1000 lags), each
+    adding into zeroed stack rows: within 1e-6 of each gather's peak; added
+    into seeded rows, the slots past the array's ends keep their bits and
+    every other slot changes."""
+    from das_diff_veh_tpu_torch.ops import band_lag_add as bla
+
+    m, nb, lead = BAND_LAUNCHES[shape]
+    cross = _band_cross(card, m, nb, seed=31 + m + nb)
+    got = torch.zeros((m, 601, 2001), device=card)
+    want = torch.zeros_like(got)
+    before = bla.launches
+    bla.band_lag_add(cross, got, lead, 9, 204, 4096, 1000)
+    bla.band_lag_add_plain(cross, want, lead, 9, 204, 4096, 1000)
+    torch.cuda.synchronize()
+    assert bla.launches - before == 1
+    assert _gather_gap(got, want) <= 1e-6
+    gen = torch.Generator(device=card).manual_seed(32)
+    base = torch.randn((m, 601, 2001), generator=gen, device=card)
+    seeded = base.clone()
+    bla.band_lag_add(cross, seeded, lead, 9, 204, 4096, 1000)
+    torch.cuda.synchronize()
+    inside = bla.in_array(m, nb, 601, lead).to(card)
+    assert torch.equal(seeded[~inside], base[~inside])
+    assert bool(torch.all((seeded[inside] != base[inside]).any(dim=-1)))
+
+
+@pytest.mark.parametrize("band", [(0, 2048), (2048, 2048), (0, 5)],
+                         ids=["whole_window", "nyquist_only", "below_q_min"])
+def test_band_lag_add_kernel_at_the_band_edges(card, band):
+    """Bands from bin 0, to bin wlen/2 and below Q's least: the kernel
+    against its plain version, with imaginary parts in bins 0 and wlen/2
+    (c2r's rule drops them), and, with those bins real as a real record
+    leaves them, against the irfft finish; 1e-6 of each gather's peak."""
+    from das_diff_veh_tpu_torch.ops import band_lag_add as bla
+    from das_diff_veh_tpu_torch.ops.all_pairs import _banded_finish
+
+    lo, hi = band
+    cross = _band_cross(card, 8, 28, seed=33, lo=lo, hi=hi)
+    got = torch.zeros((8, 21, 2001), device=card)
+    plain = torch.zeros_like(got)
+    before = bla.launches
+    assert _banded_finish(cross, got, 100, 90, 4096, 10, 1000, 8, band=band)
+    bla.band_lag_add_plain(cross, plain, 0, lo, hi, 4096, 1000)
+    torch.cuda.synchronize()
+    assert bla.launches - before == 1
+    assert _gather_gap(got, plain) <= 1e-6
+    cross[..., 0] = cross[..., 0].real
+    cross[..., 2048] = cross[..., 2048].real
+    got.zero_()
+    want = torch.zeros_like(got)
+    _banded_finish(cross, got, 100, 90, 4096, 10, 1000, 8, band=band)
+    _banded_finish(cross, want, 100, 90, 4096, 10, 1000, 8)
+    torch.cuda.synchronize()
+    assert _gather_gap(got, want) <= 1e-6
+
+
+def test_band_finish_pair_bits_do_not_depend_on_the_chunk(card):
+    """As ``test_banded_finish_pair_bits_do_not_depend_on_the_chunk``, on
+    spectra zero outside the DASH band and with the band given: each pair's
+    lags come out the same bits in either chunking, since the kernel takes
+    each pair alone."""
+    from das_diff_veh_tpu_torch.ops.all_pairs import add_banded
+
+    wf = _band_cross(card, 300, 13, seed=34)
+    off, lag, chunk = 40, 100, 64
+    a = torch.zeros((300, 2 * off + 1, 2 * lag + 1), device=card)
+    b = torch.zeros((299, 2 * off + 1, 2 * lag + 1), device=card)
+    assert add_banded(wf, a, 4096, off, lag, chunk, use_kernel=True, band=(9, 204))
+    assert add_banded(wf[1:].contiguous(), b, 4096, off, lag, chunk, use_kernel=True,
+                      band=(9, 204))
+    torch.cuda.synchronize()
+    for s in range(1, 300):
+        j0 = max(off - s + 1, 0)                 # receivers from row 1 on
+        assert torch.equal(a[s, j0:], b[s - 1, j0:]), s
+
+
+@pytest.mark.parametrize("whiten", [True, False], ids=["whitened", "unwhitened"])
+def test_a_dash_record_launches_the_band_kernel_once_a_chunk(card, whiten):
+    """A record of the DASH array's 8721 channels (one 4096-sample window,
+    so that it stays small): 137 B3 launches and, whitened, 137 of the band
+    kernel, every record counted in ``das_ambient_band_finish_records_total``;
+    unwhitened, the irfft finish, no band launch and no count."""
+    import numpy as np
+
+    from das_diff_veh_tpu_torch.config import AmbientConfig
+    from das_diff_veh_tpu_torch.obs import default_registry
+    from das_diff_veh_tpu_torch.ops import band_lag_add as bla
+    from das_diff_veh_tpu_torch.ops import cross_spectra as cs
+    from das_diff_veh_tpu_torch.pipeline.ambient import stack_records
+
+    reg = default_registry()
+    n0 = reg.counter("das_ambient_records_total").value
+    b0 = reg.counter("das_ambient_band_finish_records_total").value
+    rec = np.random.default_rng(35).standard_normal((8721, 4096)).astype(np.float32)
+    c0, k0 = cs.launches, bla.launches
+    run = stack_records([rec], AmbientConfig(whiten=whiten), device=card)
+    assert run.records == 1 and not run.quarantined
+    assert cs.launches - c0 == 137 and bla.launches - k0 == (137 if whiten else 0)
+    assert reg.counter("das_ambient_records_total").value - n0 == 1
+    assert reg.counter("das_ambient_band_finish_records_total").value - b0 == int(whiten)
+    ends = run.stack.flush([0, 8720])
+    assert np.all(ends[0, :300] == 0) and np.all(ends[1, 301:] == 0)
+    assert np.all(np.abs(ends[0, 300:]).max(axis=1) > 0)
+    del run
+    torch.cuda.empty_cache()
