@@ -27,6 +27,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SOURCES = ("traj_gather", "traj_dot", "cross_spectra", "lag_absmax", "band_lag_add")
 
 _LIBS: dict = {}
+_FUNCS: dict = {}        # (name, symbol) -> typed function, see function()
 build_seconds: dict = {}     # name -> nvcc wall time of this process's build
 build_log: dict = {}         # name -> nvcc output (ptxas register/spill report)
 
@@ -87,3 +88,14 @@ def load(name: str) -> ctypes.CDLL:
     if name not in _LIBS:
         build_all((name,))
     return _LIBS[name]
+
+
+def function(name: str, symbol: str, restype, argtypes: list):
+    """``symbol`` of :func:`load`'s library of ``csrc/<name>.cu``, typed
+    once, and called with the interpreter lock held: a launch returns in
+    microseconds, and a thread that gives the lock up for each launch of a
+    loop takes it back behind the process's other threads."""
+    key = (name, symbol)
+    if key not in _FUNCS:
+        _FUNCS[key] = ctypes.PYFUNCTYPE(restype, *argtypes)((symbol, load(name)))
+    return _FUNCS[key]

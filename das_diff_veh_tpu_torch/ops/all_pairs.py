@@ -56,7 +56,7 @@ as the add's scale.
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, ContextManager
+from typing import Callable, ContextManager, Optional
 
 import torch
 
@@ -283,15 +283,20 @@ def peak_from_spectra(wf_src, wf_all, wlen: int, src_chunk: int, use_kernel: boo
     return _chunked(wf_src, src_chunk, finish)
 
 
-def band_schedule(nch: int, src_chunk: int, max_offset: int) -> list:
-    """``(s0, s1, r0, r1)`` of every chunk of the banded entry: source rows
-    ``s0:s1`` against receiver rows ``r0:r1``, the ``max_offset`` rows on
-    either side of the chunk clipped to the array."""
+def band_schedule(nch: int, src_chunk: int, max_offset: int,
+                  chunks: range | None = None) -> list:
+    """``(s0, s1, r0, r1)`` of every chunk of the banded entry, or of the
+    chunks numbered ``chunks`` (a block of them: a shard of the day
+    stack): source rows ``s0:s1`` against receiver rows ``r0:r1``, the
+    ``max_offset`` rows on either side of the chunk clipped to the array."""
     if src_chunk < 1 or max_offset < 0:
         raise ValueError(f"src_chunk must be >= 1 and max_offset >= 0, got {src_chunk} "
                          f"and {max_offset}")
+    starts = range(0, nch, src_chunk)
+    if chunks is not None:
+        starts = starts[chunks.start:chunks.stop]
     return [(s0, min(s0 + src_chunk, nch), max(s0 - max_offset, 0),
-             min(s0 + src_chunk + max_offset, nch)) for s0 in range(0, nch, src_chunk)]
+             min(s0 + src_chunk + max_offset, nch)) for s0 in starts]
 
 
 def _banded_finish(cross: torch.Tensor, out: torch.Tensor, s0: int, r0: int, wlen: int,
@@ -323,8 +328,38 @@ def _no_block(name: str):
     return contextlib.nullcontext()
 
 
-def add_banded(wf: torch.Tensor, out: torch.Tensor, wlen: int, max_offset: int,
-               max_lag: int, src_chunk: int = 64, use_kernel: bool = True,
+class BandShard:
+    """One device's part of the stack :func:`add_banded` adds into, with
+    what its chunks take made once: ``out`` holds the stack rows from
+    ``out_row0`` on of ``chunks`` (a contiguous block of
+    :func:`band_schedule`'s chunks), on one device; :attr:`spectra` holds
+    the record's spectra rows from ``row0`` on, on that device (None:
+    ``add_banded``'s ``wf``); ``block`` as ``add_banded``'s.  Each chunk's
+    stack rows are a view made here, and its cross-spectra a view of one
+    buffer of the shard's, made at its first record (again for another
+    number of bins), so that a record's launches make no tensor a chunk."""
+
+    def __init__(self, out: torch.Tensor, chunks: list, out_row0: int = 0, row0: int = 0,
+                 block: Callable[[str], ContextManager] = _no_block):
+        self.out, self.chunks, self.row0, self.block = out, list(chunks), row0, block
+        self.rows = [out[s0 - out_row0:s1 - out_row0] for s0, s1, _, _ in self.chunks]
+        self.spectra: Optional[torch.Tensor] = None
+        self._cross: tuple = (None, [])
+
+    def cross(self, nf: int) -> list:
+        """A contiguous (m, nb, nf) complex64 view a chunk, all of one
+        buffer: a chunk's cross-spectra are read by its finish before the
+        next chunk's are written, in the order of the device's stream."""
+        if self._cross[0] != nf:
+            size = max((s1 - s0) * (r1 - r0) for s0, s1, r0, r1 in self.chunks) * nf
+            buf = torch.empty(size, dtype=torch.complex64, device=self.out.device)
+            self._cross = (nf, [buf[:(s1 - s0) * (r1 - r0) * nf].view(s1 - s0, r1 - r0, nf)
+                                for s0, s1, r0, r1 in self.chunks])
+        return self._cross[1]
+
+
+def add_banded(wf: torch.Tensor, out, wlen: int, max_offset: int, max_lag: int,
+               src_chunk: int = 64, use_kernel: bool = True,
                block: Callable[[str], ContextManager] = _no_block, band=None) -> None:
     """Add the banded lag-domain xcorr of (nch, nwin, nf) window spectra
     ``wf`` into ``out`` (nch, 2*max_offset+1, 2*max_lag+1) float32 on the
@@ -335,21 +370,38 @@ def add_banded(wf: torch.Tensor, out: torch.Tensor, wlen: int, max_offset: int,
     each chunk's ``"cross"`` and ``"finish"`` work (the pipeline's device
     blocks).  ``band``: ``(lo, hi)`` where every bin of ``wf`` outside
     ``lo..hi`` is zero (whitened spectra), in a window ``band_lag_add``
-    takes: the finish then runs over the band alone."""
-    nch, nwin, _ = wf.shape
+    takes: the finish then runs over the band alone.
+
+    ``out`` may instead be a list of :class:`BandShard`: a stack split by
+    blocks of chunks over devices (``pipeline.ambient.DayStack``).  Their
+    chunks are enqueued in turn, the first of each shard, then the second
+    of each, and so on, so that every device starts at once; each chunk
+    runs on its shard's device (the launches switch to it) and is wrapped
+    in its shard's ``block``.  A chunk's arithmetic is that of the whole
+    stack."""
+    nch, nwin, nf = wf.shape
     if 2 * max_lag + 1 > wlen:
         raise ValueError(f"max_lag={max_lag} keeps more than the {wlen} lags of a window")
-    if out.shape != (nch, 2 * max_offset + 1, 2 * max_lag + 1):
-        raise ValueError(f"out must be {(nch, 2 * max_offset + 1, 2 * max_lag + 1)}, "
-                         f"got {tuple(out.shape)}")
+    if isinstance(out, torch.Tensor):
+        if out.shape != (nch, 2 * max_offset + 1, 2 * max_lag + 1):
+            raise ValueError(f"out must be {(nch, 2 * max_offset + 1, 2 * max_lag + 1)}, "
+                             f"got {tuple(out.shape)}")
+        out = [BandShard(out, band_schedule(nch, src_chunk, max_offset), block=block)]
     wb = _resolve_win_block(nwin, None)
-    for s0, s1, r0, r1 in band_schedule(nch, src_chunk, max_offset):
-        with block("cross"):
-            if use_kernel:
-                c = cross_spectra(wf[s0:s1], wf[r0:r1], nwin, wb)
-            else:
-                c = _einsum_cross_spectra(wf[s0:s1], wf[r0:r1], wb)
-        with block("finish"):
-            _banded_finish(c, out[s0:s1], s0, r0, wlen, max_offset, max_lag, src_chunk,
-                           band)
-
+    shards = [(s, wf if s.spectra is None else s.spectra, s.cross(nf) if use_kernel else None)
+              for s in out]
+    for i in range(max(len(s.chunks) for s in out)):
+        for shard, spectra, cross in shards:
+            if i >= len(shard.chunks):
+                continue
+            s0, s1, r0, r1 = shard.chunks[i]
+            a = shard.row0
+            src, rcv = spectra[s0 - a:s1 - a], spectra[r0 - a:r1 - a]
+            with shard.block("cross"):
+                if use_kernel:
+                    c = cross_spectra(src, rcv, nwin, wb, out=cross[i])
+                else:
+                    c = _einsum_cross_spectra(src, rcv, wb)
+            with shard.block("finish"):
+                _banded_finish(c, shard.rows[i], s0, r0, wlen, max_offset, max_lag, src_chunk,
+                               band)

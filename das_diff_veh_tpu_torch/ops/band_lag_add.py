@@ -32,6 +32,7 @@ of two, are taken (:func:`takes`).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import numpy as np
@@ -49,6 +50,7 @@ def takes(wlen: int) -> bool:
     return WLEN_MIN <= wlen <= WLEN_MAX and wlen & (wlen - 1) == 0
 
 
+@functools.lru_cache(maxsize=None)
 def band_plan(wlen: int, lo: int, hi: int) -> tuple:
     """``(Q, P)`` for band bins ``lo..hi`` of a ``wlen``-sample window:
     ``Q`` the smallest power of two above the band's last bin below
@@ -177,12 +179,11 @@ def band_lag_add_cuda(cross: torch.Tensor, out: torch.Tensor, lead: int, lo: int
         raise ValueError(f"band_lag_add kernel takes at most 65535 sources a launch, got {m}")
     q, _ = band_plan(wlen, lo, hi)
     tab = twiddle_table(wlen, q, cross.device)
-    fn = kernels.load("band_lag_add").band_lag_add
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 10
-                   + [ctypes.c_float, ctypes.c_void_p])
-    with torch.cuda.device(cross.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    fn = kernels.function("band_lag_add", "band_lag_add", ctypes.c_int,
+                          [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10
+                          + [ctypes.c_float, ctypes.c_void_p])
+    with torch.cuda.device(cross.device):       # the launch goes to the current card
+        stream = torch.cuda.current_stream(cross.device).cuda_stream
         rc = fn(cross.data_ptr(), out.data_ptr(), tab.data_ptr(), m, nb, nf, lead,
                 out.shape[1], max_lag, wlen, q, lo, hi, 1.0 / wlen, stream)
     if rc != 0:

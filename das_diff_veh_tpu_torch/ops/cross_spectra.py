@@ -29,12 +29,14 @@ nothing else.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 launches = 0
 
 
+@functools.lru_cache(maxsize=None)
 def _inv(nwin: int) -> float:
     """float32(1/nwin), the scale both versions apply to each slab."""
     return float(torch.tensor(1.0 / nwin, dtype=torch.float32))
@@ -82,10 +84,12 @@ def cross_spectra_plain(src: torch.Tensor, rcv: torch.Tensor, nwin: int,
 
 
 def cross_spectra_cuda(src: torch.Tensor, rcv: torch.Tensor, nwin: int,
-                       win_block: int) -> torch.Tensor:
+                       win_block: int, out: torch.Tensor | None = None) -> torch.Tensor:
     """Launch ``csrc/cross_spectra.cu`` on PyTorch's current stream; same
     contract as :func:`cross_spectra_plain` for contiguous CUDA spectra, both
-    complex64 (the f32 tier) or both bf16 pairs (the bf16 tier)."""
+    complex64 (the f32 tier) or both bf16 pairs (the bf16 tier).  ``out``:
+    a contiguous (m, nall, nf) complex64 tensor on their card to write, in
+    place of a new one."""
     global launches
     from das_diff_veh_tpu_torch import kernels
 
@@ -111,13 +115,18 @@ def cross_spectra_cuda(src: torch.Tensor, rcv: torch.Tensor, nwin: int,
     if nall * nf >= 2 ** 31:
         raise ValueError(f"cross_spectra kernel takes fewer than 2^31 receiver values a "
                          f"source row, got nall={nall} x nf={nf}")
-    out = torch.empty((m, nall, nf), dtype=torch.complex64, device=src.device)
-    fn = kernels.load("cross_spectra").cross_spectra
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    with torch.cuda.device(src.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    if out is None:
+        out = torch.empty((m, nall, nf), dtype=torch.complex64, device=src.device)
+    elif (out.shape != (m, nall, nf) or out.dtype != torch.complex64
+          or out.device != src.device or not out.is_contiguous()):
+        raise ValueError(f"cross_spectra writes a contiguous {(m, nall, nf)} complex64 "
+                         f"tensor on {src.device}, got {tuple(out.shape)} {out.dtype} on "
+                         f"{out.device}")
+    fn = kernels.function("cross_spectra", "cross_spectra", ctypes.c_int,
+                          [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                          + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    with torch.cuda.device(src.device):       # the launch goes to the current card
+        stream = torch.cuda.current_stream(src.device).cuda_stream
         rc = fn(src.data_ptr(), rcv.data_ptr(), out.data_ptr(), m, nall, nwin, nf,
                 win_block, _inv(nwin), int(bf16), stream)
     if rc != 0:
@@ -127,12 +136,13 @@ def cross_spectra_cuda(src: torch.Tensor, rcv: torch.Tensor, nwin: int,
 
 
 def cross_spectra(src: torch.Tensor, rcv: torch.Tensor, nwin: int,
-                  win_block: int) -> torch.Tensor:
+                  win_block: int, out: torch.Tensor | None = None) -> torch.Tensor:
     """Window-mean cross-spectra: the kernel on the card, the plain version
-    on the CPU."""
+    on the CPU; written into ``out`` where it is given (and returned)."""
     if src.is_cuda:
-        return cross_spectra_cuda(src, rcv, nwin, win_block)
-    return cross_spectra_plain(src, rcv, nwin, win_block)
+        return cross_spectra_cuda(src, rcv, nwin, win_block, out)
+    plain = cross_spectra_plain(src, rcv, nwin, win_block)
+    return plain if out is None else out.copy_(plain)
 
 
 def bytes_moved(m: int, nall: int, nwin: int, nf: int, precision: str = "f32") -> int:

@@ -47,13 +47,16 @@ from das_diff_veh_tpu_torch.runtime.tracing import DeviceTimeline, device_work
 # copy of the same bytes: 19.5-20.4 ms, 52.7 GB/s.)
 SLAB_BYTES = 64 << 20
 SLABS = 3
-# Copy threads past which that put got little faster, at 64 MB slabs: 1
-# thread 161.1 ms, 2 92.6, 4 52.8, 8 48.2; the host copy alone into pinned
-# memory 89-100, 56-58, 33-39, 30-37 ms.
-COPY_THREADS_KNEE = 4
-# Cores that the copy leaves to the compute thread and the rest of the
-# process; the loader's own thread is one of the copiers.
-CORES_LEFT = 2
+# Copy threads: half the cores, the other half left to the compute thread
+# and the rest of the process (the loader's own thread is one of the
+# copiers), at most COPY_THREADS_MAX.  That put at 64 MB slabs on the
+# 8-core host: 1 thread 161.1 ms, 2 92.6, 4 52.8, 8 48.2; the host copy
+# alone into pinned memory 89-100, 56-58, 33-39, 30-37 ms.  On a host of
+# four such cards, 32 cores, in the day stack split over the four (the
+# cards at 97.5-98.6 ms a record): 4 threads 78.9 ms a put, 8 64.1 and
+# 78.7, 12 71.8; on another such host 4 threads took 119.0-123.0 ms, over
+# the cards' time.
+COPY_THREADS_MAX = 8
 # A thread's part of a slab starts on a page.
 PART_ALIGN = 4096
 
@@ -65,9 +68,9 @@ def slab_plan(nbytes: int, slab_bytes: int) -> List[Tuple[int, int]]:
 
 
 def copy_threads() -> int:
-    """Threads that fill a slab: the cores this process may run on, less
-    ``CORES_LEFT``, at least 1 and at most ``COPY_THREADS_KNEE``."""
-    return max(1, min(COPY_THREADS_KNEE, len(os.sched_getaffinity(0)) - CORES_LEFT))
+    """Threads that fill a slab: half the cores this process may run on, at
+    least 1 and at most ``COPY_THREADS_MAX``."""
+    return max(1, min(COPY_THREADS_MAX, len(os.sched_getaffinity(0)) // 2))
 
 
 def pinned_slab(nbytes: int) -> torch.Tensor:

@@ -26,7 +26,11 @@ not the time the device starts the next kernel.  A unit whose device work
 interleaves several stages (the ambient day stack's cross-spectra and finish,
 chunk after chunk) names each block (``device_work(name)``): the block's
 span takes that name in place of the unit's, and all of them are emitted
-when the unit ends, with one wait for the card.  Code that cannot take span
+when the unit ends, with one wait for the card.  A unit may span several
+cards (the day stack sharded over cards): a block names the card it runs on
+(``device_work(name, device=card, **args)``), its marks go on that card's
+current stream and are tied to a clock anchor of that card, and its own
+``args`` (the stack's ``card``) join the unit's.  Code that cannot take span
 arguments from its caller (a serving factory's program) reads them from
 :func:`span_args`, set by the caller with :func:`with_span_args`.
 """
@@ -230,56 +234,64 @@ class DeviceTimeline:
     may turn it off part way) and ``device`` is a CUDA device; otherwise,
     and inside a CUDA graph capture, ``mark`` returns None and creates no
     event, and ``emit`` of a None mark does nothing.  Marks may come from
-    several threads.
+    several threads.  ``device`` is the card a mark goes on unless the
+    caller names another (``mark(device=...)``, :func:`device_work`): each
+    card's clock is tied once, by an anchor of its own, since CUDA times
+    two events only on one card.
     """
 
     def __init__(self, tracer, device):
         self.tracer = tracer
         self.device = None if device is None else torch.device(device)
         self._card = _on_card(self.device)
-        self._anchor = None             # (event, tracer microseconds)
+        self._anchors: dict = {}        # card -> (event, tracer microseconds)
         self._lock = threading.Lock()
 
     @property
     def active(self) -> bool:
         return self._card and bool(getattr(self.tracer, "device_timeline", False))
 
-    def _anchored(self, stream) -> None:
+    def _anchored(self, stream, device) -> None:
         with self._lock:
-            if self._anchor is None:
+            if device not in self._anchors:
                 ev = torch.cuda.Event(enable_timing=True)
                 ev.record(stream)
                 ev.synchronize()
-                self._anchor = (ev, self.tracer.now_us())
+                self._anchors[device] = (ev, self.tracer.now_us())
 
-    def mark(self, stream=None):
-        """An event recorded on ``stream`` now, or None (see the class)."""
+    def mark(self, stream=None, device=None):
+        """An event recorded on ``stream`` now (default: the current stream
+        of ``device``, by default the timeline's card), or None (see the
+        class)."""
         if not self.active:
             return None
         if torch.cuda.is_current_stream_capturing():
             return None
+        device = self.device if device is None else torch.device(device)
         if stream is None:
-            stream = torch.cuda.current_stream(self.device)
-        if self._anchor is None:
-            self._anchored(stream)
+            stream = torch.cuda.current_stream(device)
+        if device not in self._anchors:
+            self._anchored(stream, device)
         ev = torch.cuda.Event(enable_timing=True)
         ev.record(stream)
         return ev
 
-    def to_us(self, event) -> float:
-        """A completed event's time on the tracer's clock."""
-        anchor, host_us = self._anchor
+    def to_us(self, event, device=None) -> float:
+        """A completed event of ``device`` (default: the timeline's card)
+        on the tracer's clock."""
+        anchor, host_us = self._anchors[self.device if device is None else torch.device(device)]
         return host_us + anchor.elapsed_time(event) * 1e3
 
-    def emit(self, name: str, m0, m1, **args) -> None:
-        """One device span from mark ``m0`` to mark ``m1``."""
+    def emit(self, name: str, m0, m1, device=None, **args) -> None:
+        """One device span from mark ``m0`` to mark ``m1``, both of
+        ``device`` (default: the timeline's card)."""
         if m0 is None or m1 is None:
             return
         if not m1.query():
             # only when it must: waiting gives up the interpreter lock, which
             # a busy host (the engine's senders) is slow to hand back
             m1.synchronize()
-        self.tracer.device(name, self.to_us(m0), self.to_us(m1), **args)
+        self.tracer.device(name, self.to_us(m0, device), self.to_us(m1, device), **args)
 
     @contextmanager
     def unit(self, name: str, **args) -> Iterator[None]:
@@ -297,8 +309,8 @@ class DeviceTimeline:
             yield
         finally:
             _local.unit = prev
-        for m0, m1, block in blocks:
-            self.emit(block or name, m0, m1, **args)
+        for m0, m1, block, device, extra in blocks:
+            self.emit(block or name, m0, m1, device, **args, **extra)
 
     def offset_us(self, stream=None) -> Optional[float]:
         """An event recorded and completed now, on the tracer's clock, less
@@ -313,21 +325,23 @@ class DeviceTimeline:
 
 
 @contextmanager
-def device_work(name: Optional[str] = None) -> Iterator[None]:
+def device_work(name: Optional[str] = None, device=None, **args) -> Iterator[None]:
     """Marks on the current stream before and after a block of device work,
     for the unit open on this thread; no unit, no event.  ``name``: the
-    block's span name, in place of the unit's.  Put it next to the enqueue,
-    with no host work inside that leaves the device waiting, and end it
-    where the work is enqueued (or, where the block waits for the device,
-    once it has)."""
+    block's span name, in place of the unit's; ``device``: the card it runs
+    on (default: the unit's timeline's), whose current stream takes the
+    marks; ``args`` join the unit's on the block's span.  Put it next to the
+    enqueue, with no host work inside that leaves the device waiting, and
+    end it where the work is enqueued (or, where the block waits for the
+    device, once it has)."""
     unit = getattr(_local, "unit", None)
     if unit is None:
         yield
         return
     timeline, blocks = unit
-    m0 = timeline.mark()
+    m0 = timeline.mark(device=device)
     yield
-    blocks.append((m0, timeline.mark(), name))
+    blocks.append((m0, timeline.mark(device=device), name, device, args))
 
 
 def make_tracer(path: Optional[str],

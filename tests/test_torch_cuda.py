@@ -1477,3 +1477,76 @@ def test_a_dash_record_launches_the_band_kernel_once_a_chunk(card, whiten):
     assert np.all(np.abs(ends[0, 300:]).max(axis=1) > 0)
     del run
     torch.cuda.empty_cache()
+
+
+# ---- the day stack split over four cards (DayStack(devices=...)) ----
+
+@pytest.fixture
+def four_cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices: the day stack split over cards")
+    return [torch.device("cuda", i) for i in range(4)]
+
+
+def _assert_rows_equal(one, four):
+    """Every row of the one-card stack against the split stack's, slab by
+    slab on the card that holds the row."""
+    for shard, part in zip(four.shards, four.sums):
+        for a in range(0, len(part), 512):
+            b = min(a + 512, len(part))
+            theirs = one.sum[shard.first + a:shard.first + b].to(shard.card)
+            assert torch.equal(part[a:b], theirs), (shard, a)
+
+
+@pytest.mark.parametrize("whiten", [True, False], ids=["band", "irfft"])
+def test_day_stack_over_four_cards_equals_one_card(four_cards, whiten):
+    """Three 1500 x 30000 records at the 500 m, +-2 s widths through the day
+    stack on one card and split over four: every row equal bit for bit,
+    with the band finish (B5) and with the irfft.  A record sends each
+    other card its rows once, and every device block names its card."""
+    import numpy as np
+
+    from das_diff_veh_tpu_torch.config import AmbientConfig
+    from das_diff_veh_tpu_torch.pipeline.ambient import DayStack, stack_records
+
+    cfg = AmbientConfig(max_offset=500, max_lag=2000, whiten=whiten)
+    recs = [np.random.default_rng(40 + k).standard_normal((1500, 30000)).astype(np.float32)
+            for k in range(3)]
+    one = stack_records(recs, cfg, device=four_cards[0]).stack
+    tracer = _EventTracer()
+    four = stack_records(recs, stack=DayStack(1500, cfg, devices=four_cards),
+                         tracer=tracer).stack
+    assert [s.card for s in four.shards] == four_cards and four.records == 3
+    _assert_rows_equal(one, four)
+    np.testing.assert_array_equal(four.flush([0, 1499, 700, *[s.last for s in four.shards]]),
+                                  one.flush([0, 1499, 700, *[s.last for s in four.shards]]))
+    chunks = {p.index: len(p.schedule) for p in four._parts}
+    for record in range(3):
+        seen = [(n, a.get("card")) for n, _, _, a in tracer.device_spans
+                if a["record"] == record]
+        assert sorted(c for n, c in seen if n == "ambient_scatter") == [1, 2, 3]
+        for name in ("ambient_cross", "ambient_finish"):
+            by_card = [c for n, c in seen if n == name]
+            assert {c: by_card.count(c) for c in set(by_card)} == chunks, name
+    assert all(e >= s for _, s, e, _ in tracer.device_spans)
+    assert one.peer_bytes_per_record == 0 and four.peer_bytes_per_record > 0
+    del one, four
+    torch.cuda.empty_cache()
+
+
+def test_dash_day_stack_over_four_cards_equals_one_card(four_cards):
+    """The PoroTomo DASH day stack at its accepted widths (8721 channels,
+    300 m, +-1 s: 41.95 GB, which one card holds): three 8721 x 30000
+    records on one card and split over four give every row bit for bit."""
+    from das_diff_veh_tpu_torch.config import AmbientConfig
+    from das_diff_veh_tpu_torch.pipeline.ambient import DayStack, stack_records
+
+    gen = torch.Generator(device=four_cards[0]).manual_seed(41)
+    recs = [torch.randn((8721, 30000), generator=gen, device=four_cards[0]).cpu()
+            for _ in range(3)]
+    one = stack_records(recs, AmbientConfig(), device=four_cards[0]).stack
+    four = stack_records(recs, stack=DayStack(8721, AmbientConfig(), devices=four_cards)).stack
+    assert [len(p.schedule) for p in four._parts] == [35, 33, 34, 35]
+    _assert_rows_equal(one, four)
+    del one, four
+    torch.cuda.empty_cache()

@@ -501,9 +501,10 @@ def test_the_slab_plan_covers_the_bytes_once_in_order(nbytes, slab):
     assert all(0 < b - a <= slab for a, b in plan)
 
 
-@pytest.mark.parametrize("cores,threads", [(1, 1), (2, 1), (3, 1), (4, 2), (6, 4), (8, 4),
-                                           (64, 4)])
+@pytest.mark.parametrize("cores,threads", [(1, 1), (2, 1), (3, 1), (4, 2), (6, 3), (8, 4),
+                                           (12, 6), (16, 8), (32, 8), (64, 8)])
 def test_copy_threads_leave_cores_and_stop_at_the_knee(monkeypatch, cores, threads):
+    """Half the cores fill the slabs, at least one and at most eight."""
     monkeypatch.setattr(staging.os, "sched_getaffinity", lambda pid: set(range(cores)))
     assert copy_threads() == threads
 
@@ -538,3 +539,51 @@ def test_the_ring_fills_a_slab_in_parts_on_threads(fake_card, monkeypatch, shape
     pool = st._pool
     st.close()
     assert st._pool is None and pool._shutdown
+
+
+def test_blocks_on_another_card_keep_a_clock_anchor_of_their_own(fake_card, tmp_path):
+    """A block that names another card marks on that card and is timed from
+    that card's own anchor (CUDA times two events only on one card); the
+    block's own arguments join the unit's."""
+    tracer = _Recorder(str(tmp_path / "t.jsonl"), clock=fake_card.clock)
+    home, other = torch.device("cpu"), torch.device("cpu", 1)
+    tl = T.DeviceTimeline(tracer, home)
+    with tl.unit("record", record=2):
+        with T.device_work("cross", card=0):
+            pass
+        fake_card.clock.advance(500)
+        with T.device_work("cross", device=other, card=1):
+            fake_card.clock.advance(40)
+    assert set(tl._anchors) == {home, other}
+    (n0, s0, e0, a0), (n1, s1, e1, a1) = tracer.device_calls
+    assert (n0, a0, n1, a1) == ("cross", {"record": 2, "card": 0},
+                                "cross", {"record": 2, "card": 1})
+    assert e1 - s1 >= 40 and s1 >= e0 + 500
+
+
+def test_split_day_stack_device_blocks_carry_their_card(fake_card, tmp_path):
+    """A day stack over four shards: a record gives one ``ambient_spectra``
+    block, an ``ambient_scatter`` block on each shard sent to, and an
+    ``ambient_cross`` and an ``ambient_finish`` block a chunk, each on its
+    shard with ``card``, the shard's place."""
+    from das_diff_veh_tpu_torch.config import AmbientConfig
+    from das_diff_veh_tpu_torch.pipeline.ambient import DayStack, stack_records
+
+    recs = [np.random.default_rng(k).standard_normal((100, 1200)).astype(np.float32)
+            for k in range(2)]
+    tracer = _Recorder(str(tmp_path / "t.jsonl"))
+    cfg = AmbientConfig(fs=1000.0, wlen=256, band_hz=(20.0, 300.0), max_offset=8,
+                        max_lag=20, src_chunk=16)
+    stack = DayStack(100, cfg, devices=["cpu"] * 4)
+    run = stack_records(recs, stack=stack, tracer=tracer)
+    tracer.close()
+    assert run.records == 2
+    chunks = {p.index: len(p.schedule) for p in stack._parts}
+    for record in (0, 1):
+        seen = [(n, a.get("card")) for n, _, _, a in tracer.device_calls
+                if a["record"] == record]
+        assert seen.count(("ambient_spectra", None)) == 1
+        assert sorted(c for n, c in seen if n == "ambient_scatter") == [1, 2, 3]
+        for name in ("ambient_cross", "ambient_finish"):
+            by_card = [c for n, c in seen if n == name]
+            assert {c: by_card.count(c) for c in set(by_card)} == chunks, name
